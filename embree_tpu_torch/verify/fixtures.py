@@ -1,0 +1,48 @@
+"""Procedural scene creators for tests and the on-card smoke run.
+
+Copy (numpy only) of the two creators of embree_tpu/verify/fixtures.py
+that the ported modules use.
+
+Analog of tutorials/common/scenegraph/geometry_creation.cpp
+(createTriangleSphere / createQuadSphere / createTrianglePlane /
+createSubdivSphere) used throughout the reference verify suite
+(tutorials/verify/verify.cpp).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def triangle_sphere(center, radius: float, n: int):
+    """Lat-long sphere: 2*n*n triangles (geometry_creation.cpp:createTriangleSphere)."""
+    center = np.asarray(center, np.float32)
+    theta = np.linspace(0.0, np.pi, n + 1)
+    phi = np.linspace(0.0, 2.0 * np.pi, n + 1)[:-1]
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")  # (n+1, n)
+    x = np.sin(tt) * np.cos(pp)
+    y = np.cos(tt)
+    z = np.sin(tt) * np.sin(pp)
+    verts = np.stack([x, y, z], -1).reshape(-1, 3) * radius + center
+    idx = np.arange((n + 1) * n).reshape(n + 1, n)
+
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            j2 = (j + 1) % n
+            a, b, c, d = idx[i, j], idx[i, j2], idx[i + 1, j], idx[i + 1, j2]
+            if i > 0:
+                tris.append([a, c, b])
+            if i < n - 1:
+                tris.append([b, c, d])
+    return verts.astype(np.float32), np.asarray(tris, np.int32)
+
+
+def random_triangles(rng: np.random.Generator, n: int, extent: float = 10.0,
+                     size: float = 0.5):
+    """Random triangle soup for stress/overlap tests (verify.cpp:1093)."""
+    base = rng.uniform(-extent, extent, (n, 1, 3)).astype(np.float32)
+    offs = rng.uniform(-size, size, (n, 3, 3)).astype(np.float32)
+    tri = base + offs
+    verts = tri.reshape(-1, 3)
+    idx = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+    return verts, idx
