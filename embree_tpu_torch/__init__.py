@@ -4,8 +4,12 @@ Same sub-package and function names as the JAX package, so the
 counterpart of a module is found by its path; plain functions on torch
 tensors inside, an explicit `torch.device` everywhere, and hand-written
 CUDA kernels (`csrc/`) where the JAX package has Pallas kernels. So far:
-triangle and quad scenes, commit (SAH cut + treelet packing) and
-closest-hit / any-hit queries through the per-ray treelet traversal.
+triangle and quad scenes; commit (SAH BVH4/BVH8 + packing, treelet
+scene for large meshes); closest-hit / any-hit queries through the
+per-ray treelet traversal (large incoherent batches) or the BVH packet
+kernel (everything else), with ray masks and intersection filters; the
+differentiable hit (`diff.hit`); the `triangle_geometry` tutorial
+(`render.tutorials`).
 
 Quick start::
 

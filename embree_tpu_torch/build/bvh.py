@@ -1,6 +1,6 @@
-"""Wide-BVH host arrays (numpy).
+"""Wide-BVH data structure: host arrays (numpy) and device tensors.
 
-Counterpart of embree_tpu/build/bvh.py, host side only. Nodes store all
+Counterpart of embree_tpu/build/bvh.py. Nodes store all
 child bounds SoA with two parallel i32 arrays in place of tagged NodeRef
 pointers (reference bvh.h:118-141):
 
@@ -15,18 +15,49 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 WIDTH = 4  # BVH4 default, like the reference's BVH4Factory production path
 
 
+class BVH(NamedTuple):
+    """Device-side wide BVH."""
+
+    lower: torch.Tensor       # (M, W, 3) f32 child bounds
+    upper: torch.Tensor       # (M, W, 3) f32
+    child: torch.Tensor       # (M, W) i32
+    count: torch.Tensor       # (M, W) i32
+    prim_order: torch.Tensor  # (P,) i32 permutation into scene prim arrays
+
+    @property
+    def num_nodes(self):
+        return self.lower.shape[0]
+
+    @property
+    def width(self):
+        return self.lower.shape[1]
+
+
 class BVHArraysNP(NamedTuple):
-    """Host-side (numpy) builder output."""
+    """Host-side (numpy) builder output before device upload."""
 
     lower: np.ndarray
     upper: np.ndarray
     child: np.ndarray
     count: np.ndarray
     prim_order: np.ndarray
+
+    def to_device(self, device) -> BVH:
+        device = torch.device(device)
+
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+        return BVH(lower=up(self.lower, np.float32),
+                   upper=up(self.upper, np.float32),
+                   child=up(self.child, np.int32),
+                   count=up(self.count, np.int32),
+                   prim_order=up(self.prim_order, np.int32))
 
 
 def empty_bvh_np(width: int = WIDTH) -> BVHArraysNP:

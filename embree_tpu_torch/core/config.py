@@ -52,12 +52,20 @@ class State:
 
     # threading / device (threads=0 -> all: host-side build threads)
     threads: int = 0
-    # stands in for reference `isa=`; recorded, selects nothing yet
+    # stands in for reference `isa=`; recorded and selects nothing: each
+    # traversal path has one kernel, and a kernel's plain version is
+    # taken for CPU tensors only
     isa: str = "default"
+    # where the Device puts its tensors when the caller names no
+    # device: "default" is the CUDA device; "cpu" asks for the CPU
+    device: str = "default"
     verbose: int = 0
     benchmark: int = 0
 
-    # per-accel overrides (state.h:57-110)
+    # per-accel overrides (state.h:57-110). tri_accel selects the node
+    # width ("bvh8..." builds a BVH8, anything else a BVH4) and the treelet
+    # scene ("....rowtrace" builds it below ROWTRACE_MIN_PRIMS too,
+    # "....packet" never builds it)
     tri_accel: str = "default"
     tri_accel_mb: str = "default"
     quad_accel: str = "default"
@@ -131,9 +139,9 @@ class State:
                  "backface_culling"}
         sizes = {"tessellation_cache_size"}
         floats = {"max_spatial_split_replications"}
-        strs = {"isa", "tri_accel", "tri_accel_mb", "quad_accel", "hair_accel",
-                "object_accel", "subdiv_accel", "subdiv_accel_mb", "builder",
-                "compressed_node"}
+        strs = {"isa", "device", "tri_accel", "tri_accel_mb", "quad_accel",
+                "hair_accel", "object_accel", "subdiv_accel",
+                "subdiv_accel_mb", "builder", "compressed_node"}
         if k in ints:
             setattr(self, k, int(v))
         elif k in bools:

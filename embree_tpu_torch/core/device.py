@@ -7,8 +7,9 @@ to python exceptions from a RaytracerError hierarchy plus an optional
 error callback invoked before raising.
 
 `Device()` means the CUDA device and raises when there is none; a caller
-that wants the CPU says `Device(device="cpu")`. Nothing here carries on
-quietly on another device than the one asked for.
+that wants the CPU says `Device(device="cpu")` or puts `device=cpu` into
+the config string (the argument wins over the string). Nothing here
+carries on quietly on another device than the one asked for.
 """
 from __future__ import annotations
 
@@ -51,7 +52,10 @@ class Device:
         self.error_fn: Optional[Callable[[Error, str], None]] = None
         self.memory_monitor_fn: Optional[Callable[[int, bool], bool]] = None
         self._memory_bytes = 0
-        self.device = torch.device("cuda" if device is None else device)
+        if device is None:
+            device = ("cuda" if self.state.device == "default"
+                      else self.state.device)
+        self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RaytracerError(

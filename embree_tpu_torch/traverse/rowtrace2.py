@@ -6,8 +6,8 @@ returns, per ray, the closest hit `(t, prim)` over a `TreeletScene`
 (`t = -inf` marks a hit, `prim` stays -1).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-`csrc/rowtrace2.cu` (built by nvcc at first use into `_build/`, loaded
-with ctypes) or raises; on a CPU tensor it runs `rowtrace2_plain`, the
+`csrc/rowtrace2.cu` (built and loaded at first use by core/nvcc.py) or
+raises; on a CPU tensor it runs `rowtrace2_plain`, the
 same per-ray state machine written with masked tensor ops. Both visit,
 for every ray:
 
@@ -34,100 +34,41 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import shutil
-import subprocess
-import threading
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..build.treelets import (BLOCK_ROWS, LEAF_FIELDS, N_INNER, NODE_ROWS,
                               TreeletScene)
-from ..core.math import rcp_safe
+from ..core.math import (ROBUST_MAX_RCP as ROBUST_MAX,
+                         ROBUST_MIN_RCP as ROBUST_MIN, rcp_safe)
+from ..core.nvcc import check_tensor, load_library
 from ..core.rayhit import Rays
 from .moeller import DEN_MIN
 
-ROBUST_MIN = float(np.float32(1.0 - 3.0 * 2.0 ** -23))
-ROBUST_MAX = float(np.float32(1.0 + 3.0 * 2.0 ** -23))
 MAX_FAN = 128              # the kernel's fan mask is 4 x 32 bits
 PLAIN_CHUNK = 65536        # rays per lock-step batch of the plain version
-
-_pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_pkg, "csrc", "rowtrace2.cu")
-BUILD_DIR = os.path.join(_pkg, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # number of kernel launches made by this module (plain-version calls do
 # not count); a caller that wants to know whether a path went through
 # the kernel sets it to 0 before and reads it after
 launches = 0
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build_kernel(verbose: bool = False) -> str:
-    """Compile csrc/rowtrace2.cu into _build/librowtrace2.so unless an
-    up-to-date library is there; returns its path. Raises when nvcc is
-    missing or refuses the source."""
-    so = os.path.join(BUILD_DIR, "librowtrace2.so")
-    if (os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(KERNEL_SOURCE)):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, KERNEL_SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+KERNEL_NAME = "rowtrace2"      # csrc/rowtrace2.cu -> _build/librowtrace2.so
 
 
 def _load_kernel():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernel())
-            p = ctypes.c_void_p
-            lib.rowtrace2_launch.restype = ctypes.c_int
-            lib.rowtrace2_launch.argtypes = [
-                p, p, p, ctypes.c_int, ctypes.c_int,      # scene
-                p, p, p, p, ctypes.c_longlong,            # rays
-                p, p, ctypes.c_int, ctypes.c_int,         # out, variant
-                p, p, p]                                  # stats, stream
-            lib.rowtrace2_error_string.restype = ctypes.c_char_p
-            lib.rowtrace2_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-    return _lib
-
-
-def _check(name: str, a: torch.Tensor, device, dtype, shape) -> None:
-    if a.device != device:
-        raise ValueError(f"{name}: on {a.device}, the scene is on {device}")
-    if a.dtype != dtype:
-        raise ValueError(f"{name}: dtype {a.dtype}, expected {dtype}")
-    if tuple(a.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(a.shape)}, expected {shape}")
-    if not a.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    lib = load_library(KERNEL_NAME)
+    p = ctypes.c_void_p
+    lib.rowtrace2_launch.restype = ctypes.c_int
+    lib.rowtrace2_launch.argtypes = [
+        p, p, p, ctypes.c_int, ctypes.c_int,      # scene
+        p, p, p, p, ctypes.c_longlong,            # rays
+        p, p, ctypes.c_int, ctypes.c_int,         # out, variant
+        p, p, p]                                  # stats, stream
+    lib.rowtrace2_error_string.restype = ctypes.c_char_p
+    lib.rowtrace2_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def _checked_inputs(ts: TreeletScene, rays: Rays):
@@ -137,18 +78,18 @@ def _checked_inputs(ts: TreeletScene, rays: Rays):
     if not 1 <= fan <= MAX_FAN:
         raise ValueError(f"fan {fan} outside 1..{MAX_FAN}")
     f32 = torch.float32
-    _check("blocks", ts.blocks, device, f32, (M * fan, BLOCK_ROWS, 128))
-    _check("mid_boxes", ts.mid_boxes, device, f32, (M, 6))
-    _check("tre_boxes", ts.tre_boxes, device, f32, (M, 6, 128))
+    check_tensor("blocks", ts.blocks, device, f32, (M * fan, BLOCK_ROWS, 128))
+    check_tensor("mid_boxes", ts.mid_boxes, device, f32, (M, 6))
+    check_tensor("tre_boxes", ts.tre_boxes, device, f32, (M, 6, 128))
     R = rays.tnear.numel()
     org = rays.org.reshape(-1, 3)
     d = rays.dir.reshape(-1, 3)
     tn = rays.tnear.reshape(-1)
     tf = rays.tfar.reshape(-1)
-    _check("rays.org", org, device, f32, (R, 3))
-    _check("rays.dir", d, device, f32, (R, 3))
-    _check("rays.tnear", tn, device, f32, (R,))
-    _check("rays.tfar", tf, device, f32, (R,))
+    check_tensor("rays.org", org, device, f32, (R, 3))
+    check_tensor("rays.dir", d, device, f32, (R, 3))
+    check_tensor("rays.tnear", tn, device, f32, (R,))
+    check_tensor("rays.tfar", tf, device, f32, (R,))
     return org, d, tn, tf
 
 

@@ -1,11 +1,14 @@
-"""The first slice of the PyTorch port as a whole: Scene / commit /
-intersect / occluded in both packages on the same meshes and rays, the
-reference through its XLA path (`isa="xla"`), the port on the CPU
-through the plain version of its kernel.
+"""The PyTorch port as a whole: Scene / commit / intersect / occluded in
+both packages on the same meshes and rays, the reference through its XLA
+path (`isa="xla"`), the port on the CPU through the plain version of
+each of its two kernels: the packet kernel, which serves these small
+scenes by the dispatch rule, and the treelet kernel, reached by asking
+for a treelet scene (`tri_accel=....rowtrace`) and lowering
+ROWTRACE_MIN_RAYS.
 
 Tolerances: ids equal except on equal-t ties; t 1e-5 relative; u, v 1e-5
-absolute; Ng 1e-5 relative to its length. The two sides run different
-acceleration structures (BVH4 packets there, treelets here) and XLA:CPU
+absolute; Ng 1e-5 relative to its length. The two sides walk their trees
+in another order (and the treelet kernel another tree) and XLA:CPU
 contracts FMAs, so nothing here is bit-exact."""
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import torch
 import embree_tpu as et
 import embree_tpu_torch as ett
 from embree_tpu_torch.convert import committed_scene_from_reference
+from embree_tpu_torch.scene import scene as port_scene
 from embree_tpu_torch.verify.fixtures import random_triangles, triangle_sphere
 
 
@@ -93,10 +97,29 @@ GEOMS = {
 }
 
 
+ROWTRACE_CFG = "ignore_config_files=1,tri_accel=bvh4.triangle4.rowtrace"
+
+
+@pytest.fixture
+def kernel_path(request, monkeypatch):
+    """The Device config that makes small scenes and batches reach the
+    named kernel of the port: "packet" is what the dispatch rule gives
+    them; "rowtrace2" asks for a treelet scene and lowers the ray
+    threshold."""
+    if request.param == "rowtrace2":
+        monkeypatch.setattr(port_scene, "ROWTRACE_MIN_RAYS", 1)
+        return ROWTRACE_CFG
+    return "ignore_config_files=1"
+
+
+@pytest.mark.parametrize("kernel_path", ["packet", "rowtrace2"],
+                         indirect=True)
 @pytest.mark.parametrize("case", sorted(GEOMS))
-def test_scene_matches_reference(rng, case):
+def test_scene_matches_reference(rng, case, kernel_path):
     geoms = GEOMS[case](rng)
-    ref_sc, port_sc = commit_both(geoms)
+    ref_sc, port_sc = commit_both(geoms, kernel_path)
+    assert (port_sc.committed.rowtrace is not None) == (
+        kernel_path == ROWTRACE_CFG)
     org, d = make_rays_np(rng, 600, 3.0)
     ref = et.scene_intersect(ref_sc.committed, et.make_rays(org, d),
                              isa="xla")
@@ -119,11 +142,13 @@ def test_scene_matches_reference(rng, case):
         np.testing.assert_array_equal(a, b)
 
 
-def test_batch_shape_tnear_tfar_and_cull(rng):
+@pytest.mark.parametrize("kernel_path", ["packet", "rowtrace2"],
+                         indirect=True)
+def test_batch_shape_tnear_tfar_and_cull(rng, kernel_path):
     """Rays keep their batch shape; tnear / tfar clip; the
     backface_culling config key reaches the traversal."""
     geoms = [("tri", *triangle_sphere((0, 0, 0), 2.0, 16))]
-    cfg = "ignore_config_files=1,backface_culling=1"
+    cfg = kernel_path + ",backface_culling=1"
     ref_sc, port_sc = commit_both(geoms, cfg)
     assert port_sc.committed.backface_cull is True
     org, d = make_rays_np(rng, 6 * 50, 3.0)
@@ -145,6 +170,14 @@ def reference_arrays(cs) -> dict:
     """The JAX package's committed state as numpy arrays."""
     a = {f"tris.{k}": np.asarray(getattr(cs.tris, k))
          for k in ("v0", "v1", "v2", "geom_id", "prim_id", "uv_flip")}
+    a.update({f"bvh.{k}": np.asarray(getattr(cs.bvh, k))
+              for k in ("lower", "upper", "child", "count", "prim_order")})
+    ps = cs.pallas
+    a.update({"packet.nodes": np.asarray(ps.nodes),
+              "packet.tdata": np.asarray(ps.tdata),
+              "packet.bvh_to_orig": np.asarray(ps.bvh_to_orig),
+              "packet.num_nodes": ps.num_nodes,
+              "packet.num_prims": ps.num_prims, "packet.width": ps.width})
     rt = cs.rowtrace
     a.update({"rowtrace.blocks": np.asarray(rt.blocks),
               "rowtrace.mid_boxes": np.asarray(rt.mid_boxes),
@@ -159,16 +192,14 @@ def reference_arrays(cs) -> dict:
     return a
 
 
-def test_committed_scene_from_reference(rng):
+def test_committed_scene_from_reference(rng, monkeypatch):
     """The JAX commit's arrays, carried across, answer exactly as the
-    port's own commit of the same meshes does."""
+    port's own commit of the same meshes does, through either kernel."""
     geoms = [("quad", *quad_sphere((1.0, 0, 0), 1.0, 10)),
              ("tri", *random_triangles(rng, 900, extent=3.0, size=0.8))]
-    # the reference builds its treelet scene for small meshes only when
+    # both packages build the treelet scene for small meshes only when
     # the accel string asks for it
-    ref_sc, _ = commit_both(
-        geoms, "ignore_config_files=1,tri_accel=bvh4.triangle4.rowtrace")
-    _, port_sc = commit_both(geoms)
+    ref_sc, port_sc = commit_both(geoms, ROWTRACE_CFG)
     assert ref_sc.committed.rowtrace is not None
     arrays = reference_arrays(ref_sc.committed)
     cs = committed_scene_from_reference(arrays, "cpu")
@@ -185,21 +216,31 @@ def test_committed_scene_from_reference(rng):
     assert torch.equal(cs.rowtrace.mid_boxes, own.rowtrace.mid_boxes)
     assert torch.equal(cs.rowtrace.tre_boxes, own.rowtrace.tre_boxes)
     assert torch.equal(cs.prim_mask, own.prim_mask)
+    assert torch.equal(cs.packet.nodes, own.packet.nodes)
+    assert torch.equal(cs.packet.tdata, own.packet.tdata)
     assert cs.backface_cull is False
     org, d = make_rays_np(rng, 500, 3.0)
     rays = ett.make_rays(org, d, device="cpu")
-    h_ref = ett.scene_intersect(cs, rays)
-    h_own = port_sc.intersect(rays)
-    assert h_own.valid.sum() >= 50
-    for a, b in zip(h_ref, h_own):
-        assert torch.equal(a, b)
-    assert torch.equal(ett.scene_occluded(cs, rays), port_sc.occluded(rays))
+    for min_rays in (port_scene.ROWTRACE_MIN_RAYS, 1):   # packet, rowtrace2
+        monkeypatch.setattr(port_scene, "ROWTRACE_MIN_RAYS", min_rays)
+        h_ref = ett.scene_intersect(cs, rays)
+        h_own = port_sc.intersect(rays)
+        assert h_own.valid.sum() >= 50
+        for a, b in zip(h_ref, h_own):
+            assert torch.equal(a, b)
+        assert torch.equal(ett.scene_occluded(cs, rays),
+                           port_sc.occluded(rays))
     with pytest.raises(ValueError):
         committed_scene_from_reference(
             {**arrays, "rowtrace.num_treelets": 1}, "cpu")
+    # the treelet scene may be absent, the packed scene may not
+    no_rt = committed_scene_from_reference(
+        {k: v for k, v in arrays.items() if not k.startswith("rowtrace")},
+        "cpu")
+    assert no_rt.rowtrace is None and no_rt.packet is not None
     with pytest.raises(ValueError):
         committed_scene_from_reference(
-            {k: v for k, v in arrays.items() if not k.startswith("rowtrace")},
+            {k: v for k, v in arrays.items() if not k.startswith("packet")},
             "cpu")
 
 
@@ -247,12 +288,19 @@ def test_unported_arguments_raise(rng):
         assert e.value.code == ett.Error.INVALID_OPERATION
 
     raises_not_ported(lambda: sc.intersect(rays, time=0.5))
-    raises_not_ported(lambda: sc.intersect(rays, mask=torch.ones(4)))
-    raises_not_ported(lambda: sc.occluded(rays, mask=torch.ones(4)))
     raises_not_ported(lambda: ett.scene_intersect(
-        sc.committed, rays, filter_fn=lambda *a: True))
-    sc.set_intersection_filter(lambda *a: True)
-    raises_not_ported(lambda: sc.intersect(rays))
+        sc.committed, rays, time=torch.zeros(4)))
+    # ray masks and intersection filters are ported: they answer
+    plain = sc.intersect(rays)
+    assert plain.valid.all()                   # origins inside the sphere
+    assert torch.equal(sc.intersect(rays, mask=torch.ones(4)).valid,
+                       plain.valid)
+    assert not sc.occluded(rays, mask=torch.zeros(4)).any()
+    kept = ett.scene_intersect(sc.committed, rays, filter_fn=lambda *a: True)
+    assert torch.equal(kept.gprim, plain.gprim)
+    sc.set_intersection_filter(lambda *a: False)
+    assert not sc.intersect(rays).valid.any()
+    sc.set_intersection_filter(None)
     for q in (ett.BuildQuality.LOW, ett.BuildQuality.REFIT):
         low = ett.Scene(dev, quality=q)
         low.attach(ett.TriangleMesh(*triangle_sphere((0, 0, 0), 1.0, 8)))
