@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (embree_tpu_torch).
 
-    python3 chip_smoke.py            # needs one CUDA card, about 3 minutes
+    python3 chip_smoke.py            # needs one CUDA card, several minutes
     python3 chip_smoke.py --quick    # stop after the kernel-vs-plain phases
 
 Builds every kernel from the sources in this checkout (one nvcc per
@@ -19,7 +19,16 @@ the public entry points:
     `triangle_geometry` tutorial through `TutorialApplication.run`,
     its image held against the reference renderer's own 128x128 render;
   * the trainer: 5 steps of forward (treelet kernel, no gradient) +
-    `hit_t_grad` + backward + a plain gradient step on the vertices.
+    `hit_t_grad` + backward + a plain gradient step on the vertices;
+  * the compressed subdivision path (kernels `cbvh` and `cbvh_occluded`):
+    a 3,968-face quad sphere (without its degenerate pole faces)
+    displaced by fBm noise, subdivided to level 5 and committed under
+    `subdiv_accel=bvh4.compressed.leaf` as 63,488 tiles of 64 cells, with
+    2^21 incoherent rays and a 1920x1080 frame through `scene.intersect`
+    / `scene.occluded`, held against the eager tessellation of the same
+    mesh (8.1M triangles through the packet kernel); the other modes and
+    node flavors on a 960-face cage; and the `displacement_geometry`
+    tutorial.
 
 Answers are checked against the plain versions, against a brute-force
 test of every triangle, between the two kernels, and against autograd;
@@ -59,16 +68,22 @@ from embree_tpu_torch.core.rayhit import Rays  # noqa: E402
 from embree_tpu_torch.diff.hit import hit_t_grad, reeval_hit_verts  # noqa: E402
 from embree_tpu_torch.render.camera import Camera, primary_rays  # noqa: E402
 from embree_tpu_torch.render.image import read_pfm  # noqa: E402
+from embree_tpu_torch.render.noise import fbm_displacement  # noqa: E402
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    displacement_geometry as displacement_tutorial)
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     triangle_geometry as tutorial)
 from embree_tpu_torch.scene.prims import prim_bounds_np  # noqa: E402
+from embree_tpu_torch.scene.scene import _scene_bytes  # noqa: E402
+from embree_tpu_torch.traverse import cbvh_kernel as ck  # noqa: E402
 from embree_tpu_torch.traverse import packet_kernel as pk  # noqa: E402
 from embree_tpu_torch.traverse import rowtrace2 as rt2  # noqa: E402
 from embree_tpu_torch.traverse.moeller import intersect_triangle  # noqa: E402
 from embree_tpu_torch.traverse.packet import _finalize_hits  # noqa: E402
 from embree_tpu_torch.traverse.stream import (sort_rays_stream,  # noqa: E402
                                               unsort_by_perm)
-from embree_tpu_torch.verify.fixtures import (random_triangles,  # noqa: E402
+from embree_tpu_torch.verify.fixtures import (quad_sphere,  # noqa: E402
+                                              random_triangles, subdiv_cube,
                                               triangle_sphere)
 
 SCENE_RES = 707            # triangle_sphere(707) = 998,284 triangles
@@ -84,6 +99,16 @@ TRAIN_LR = 1e-6
 # how far the trainer's analytic gradient may lie from autograd's (both
 # float32), relative to the largest entry
 GRAD_TOL = 2e-4
+# the compressed subdivision path: cage, levels and mode of its full-size
+# scene, and the smaller cage the other modes run on
+SUBDIV_CAGE = 64           # sphere_cage(64) = 64 x 62 = 3,968 quad faces
+SUBDIV_LEVELS = (5, 3)     # 1,024 cells a face in 16 tiles of 64 cells
+SUBDIV_SMALL_CAGE = 32
+SUBDIV_SMALL_LEVELS = (4, 3)
+B4_PLAIN_LOG2 = 16         # rays B4's and B5's plain versions walk
+# a conservative mode may report a hit this far behind the exact surface
+# (the JAX package's own bound for its conservative modes)
+CONSERVATIVE_EPS = 2e-2
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "ref_triangle_geometry_128.pfm")
 
@@ -98,6 +123,16 @@ SLAB_FLOPS = 27
 TRI_FLOPS = 53
 # the packed leaves of the packet kernel carry Ng: 9 operations fewer
 PACKED_TRI_FLOPS = TRI_FLOPS - 9
+# float32 operations of the compressed walk, counted from csrc/cbvh.cu:
+# tile entry (30 frame, 6 z slab, 4 x 16 edge lines, 14 min/max, 2 x 19
+# projection, 30 normalisation and factors, 8 reciprocals), one inner node
+# (28 decode + 4 slab tests), and one leaf by mode (box: slab, uv, z
+# factor; leaf: slab, 4 heights, 2 bilinear sums, secant, world distance;
+# grid: two triangle tests without precomputed normals)
+TILE_ENTRY_FLOPS = 190
+QUAD_NODE_FLOPS = 28 + 4 * SLAB_FLOPS
+LEAF_FLOPS = {"box": SLAB_FLOPS + 16, "leaf": SLAB_FLOPS + 95,
+              "grid": 2 * TRI_FLOPS + 10}
 
 
 def log(msg: str) -> None:
@@ -386,21 +421,30 @@ def brute_check(label, tris, flat: Rays, valid, t, keep=None, ray_mask=None,
 
 
 class Launches:
-    """Sets both kernels' launch counts to 0 on entry, reads them on
+    """Sets every kernel's launch count to 0 on entry, reads them on
     exit and adds them to the run's totals."""
 
-    totals = {"rowtrace2": 0, "packet": 0}
+    totals = {"rowtrace2": 0, "packet": 0, "cbvh": 0, "cbvh_occluded": 0}
 
     def __enter__(self):
         rt2.launches = 0
         pk.launches = 0
+        ck.launches["closest"] = ck.launches["occluded"] = 0
         return self
 
     def __exit__(self, *exc):
         self.rowtrace2, self.packet = rt2.launches, pk.launches
-        Launches.totals["rowtrace2"] += self.rowtrace2
-        Launches.totals["packet"] += self.packet
+        self.cbvh = ck.launches["closest"]
+        self.cbvh_occluded = ck.launches["occluded"]
+        for k in Launches.totals:
+            Launches.totals[k] += getattr(self, k)
         return False
+
+    def expect_cbvh(self, what, closest, occluded):
+        if (self.cbvh, self.cbvh_occluded) != (closest, occluded):
+            raise AssertionError(
+                f"{what}: {self.cbvh} cbvh and {self.cbvh_occluded} "
+                f"cbvh_occluded launches, expected {closest} and {occluded}")
 
     def expect(self, what, rowtrace2, packet):
         if (self.rowtrace2, self.packet) != (rowtrace2, packet):
@@ -470,6 +514,282 @@ def packet_times(label, ps, flat, cull=False):
     return out
 
 
+def shell_rays(rng, n, radius, jitter, device, retire_every=0):
+    """Rays from a shell of `radius` aimed at the origin with `jitter`;
+    every `retire_every`-th ray is retired (tfar = -inf)."""
+    org = rng.normal(size=(n, 3)).astype(np.float32)
+    org = org / np.linalg.norm(org, axis=1, keepdims=True) * radius
+    d = -org / radius + rng.normal(size=(n, 3)).astype(np.float32) * jitter
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = ett.make_rays(org, d, device=device)
+    if retire_every:
+        tf = r.tfar.clone()
+        tf[::retire_every] = -math.inf
+        r = r._replace(tfar=tf)
+    return r
+
+
+def sine_displacement(p, ng, u, v):
+    return (p + 0.15 * ng * np.sin(5 * p[..., :1])).astype(np.float32)
+
+
+def noise_displacement(p, ng, u, v):
+    """fBm noise along the normal, as the displacement_geometry tutorial."""
+    return (p + fbm_displacement(p)[..., None] * ng).astype(np.float32)
+
+
+def sphere_cage(n, displacement):
+    """quad_sphere((0,0,0), 2.0, n) without its two rows of pole faces, as
+    a mesh tuple for `subdiv_scene`. A pole face has an edge of length 0;
+    the compressed build (this package's and the JAX package's alike)
+    gives the tiles at such an edge a degenerate frame and world boxes as
+    large as the whole sphere (unbounded from n = 32 on), which every ray
+    then enters and `occluded` reports for every ray (ROADMAP.md C). The
+    open sphere has none."""
+    verts, quads = quad_sphere((0.0, 0.0, 0.0), 2.0, n)
+    quads = quads[n:-n]
+    return (verts, np.full(len(quads), 4, np.int32), quads.reshape(-1),
+            displacement)
+
+
+def subdiv_scene(device_cfg, mesh, levels, mode=None, flavor="com",
+                 plane=False):
+    """Commit `mesh` = (verts, counts, indices, displacement) under the
+    given compressed mode (None: eager tessellation through the packet
+    kernel's BVH only)."""
+    cfg = "ignore_config_files=1" + device_cfg
+    cfg += (f",subdiv_accel=bvh4.compressed.{mode},compressed_node={flavor}"
+            if mode else ",tri_accel=bvh4.triangle4.packet")
+    scene = ett.Scene(ett.Device(cfg))
+    if plane:
+        scene.attach(ett.TriangleMesh(
+            np.array([[-10, -3.5, -10], [-10, -3.5, 10], [10, -3.5, -10],
+                      [10, -3.5, 10]], np.float32),
+            np.array([[0, 1, 2], [1, 3, 2]], np.int32)))
+    verts, counts, indices, displacement = mesh
+    scene.attach(ett.SubdivMesh(verts, counts, indices,
+                                displacement=displacement))
+    scene.set_levels(*levels)
+    scene.commit()
+    return scene
+
+
+def compare_cbvh_plain(pc, rays, label, t_in=None):
+    """Both compressed kernels (main and counting builds) and their plain
+    versions on the same card tensors: tile equal, t, u, v at 0 ulp,
+    occlusion equal, counters equal, no dropped push. Returns
+    (max abs err of t, plain_ms closest, plain_ms occluded, rays whose
+    occlusion answer differs)."""
+    t_k, u_k, v_k, tile_k, _ = ck.cbvh_trace(pc, rays, t_in)
+    t_s, u_s, v_s, tile_s, st_k = ck.cbvh_trace(pc, rays, t_in, stats=True)
+    torch.cuda.synchronize()
+    flat = Rays(rays.org.reshape(-1, 3), rays.dir.reshape(-1, 3),
+                rays.tnear.reshape(-1),
+                (rays.tfar if t_in is None else t_in).reshape(-1))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    t_p, u_p, v_p, tile_p, st_p = ck.cbvh_plain(pc, flat, stats=True)
+    ev[1].record()
+    occ_p, so_p = ck.cbvh_occluded_plain(pc, rays, stats=True)
+    ev[2].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    plain_occ_ms = ev[1].elapsed_time(ev[2])
+    for name, tk, uk, vk, tilek in (("", t_k, u_k, v_k, tile_k),
+                                    (" (counting build)", t_s, u_s, v_s,
+                                     tile_s)):
+        if not torch.equal(tilek, tile_p):
+            raise AssertionError(f"{label}{name}: tile differs on "
+                                 f"{int((tilek != tile_p).sum())} rays")
+        for what, a, b in (("t", tk, t_p), ("u", uk, u_p), ("v", vk, v_p)):
+            ulps = ulp_distance(a, b)
+            if ulps != 0:
+                raise AssertionError(f"{label}{name}: {what} differs by "
+                                     f"{ulps} ulp")
+    if st_k != st_p:
+        raise AssertionError(f"{label}: counters differ: {st_k} vs {st_p}")
+    occ_k, _ = ck.cbvh_occluded_trace(pc, rays)
+    occ_s, so_k = ck.cbvh_occluded_trace(pc, rays, stats=True)
+    occ_err = float(max((occ_k != occ_p).sum(), (occ_s != occ_p).sum()))
+    if occ_err != 0:
+        raise AssertionError(f"{label}: occlusion differs on {occ_err:.0f} "
+                             "rays")
+    if so_k != so_p:
+        raise AssertionError(f"{label}: occlusion counters differ: {so_k} "
+                             f"vs {so_p}")
+    if st_k["dropped_pushes"] or so_k["dropped_pushes"]:
+        raise AssertionError(f"{label}: dropped pushes")
+    if t_in is None and (occ_k | (tile_k < 0)).logical_not().any():
+        raise AssertionError(f"{label}: a ray that hit a tile is not occluded")
+    n = flat.tnear.numel()
+    log(f"  {label}: {n} rays, {int((tile_k >= 0).sum())} hits, "
+        f"{int(occ_k.sum())} occluded; tile equal, t u v at 0 ulp, counters "
+        f"equal (per ray {st_k['top_nodes'] / n:.2f} top nodes, "
+        f"{st_k['tiles_entered'] / n:.2f} tiles, "
+        f"{st_k['quad_nodes'] / n:.2f} quadtree nodes, "
+        f"{st_k['leaf_tests'] / n:.2f} leaves; occlusion "
+        f"{so_k['top_nodes'] / n:.2f} top nodes), 0 dropped; plain "
+        f"{plain_ms:.0f} + {plain_occ_ms:.0f} ms")
+    fin = torch.isfinite(t_k)
+    err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+    return err, plain_ms, plain_occ_ms, occ_err
+
+
+def cbvh_small_scene_checks(device):
+    """Compressed kernels vs plain versions: the subdivision cube at
+    levels (2,2) and (4,3) and a displaced cube at (5,4), each in box,
+    leaf and grid mode; rays from a shell with every seventh retired, and
+    rays from inside the cage that start from a finite t. Returns (max abs
+    err of t, rays whose occlusion answer differs), the worst of each."""
+    rng = np.random.default_rng(0xB4)
+    verts, counts, indices = subdiv_cube()
+    worst = worst_occ = 0.0
+    for name, levels, displacement in (
+            ("subdiv_cube", (2, 2), None), ("subdiv_cube", (4, 3), None),
+            ("displaced subdiv_cube", (5, 4), sine_displacement)):
+        for mode in ck.MODES:
+            sc = subdiv_scene("", (verts, counts, indices, displacement),
+                              levels, mode)
+            pc = sc.committed.compressed_kernel
+            label = f"{name} {levels} {mode}"
+            err, _, _, occ_err = compare_cbvh_plain(
+                pc, shell_rays(rng, 2048, 4.0, 0.08, device, retire_every=7),
+                label + ", shell")
+            worst, worst_occ = max(worst, err), max(worst_occ, occ_err)
+            org = rng.uniform(-1.5, 1.5, (1025, 3)).astype(np.float32)
+            inner = ett.make_rays(org, unit_dirs(rng, 1025), device=device)
+            t_in = torch.from_numpy(
+                rng.uniform(0.2, 3.0, 1025).astype(np.float32)).to(device)
+            err, _, _, occ_err = compare_cbvh_plain(
+                pc, inner, label + ", inside, finite t", t_in=t_in)
+            worst, worst_occ = max(worst, err), max(worst_occ, occ_err)
+    return worst, worst_occ
+
+
+def tile_used_bytes(pc):
+    """Bytes of one tile that the walk can read: 44 header floats, the
+    node words, and the leaf payload of the mode."""
+    g = 1 << pc.comp_level
+    elems = (4 ** pc.comp_level - 1) // 3
+    leaf = {"box": 0, "leaf": 2 * g * g, "grid": 12 * (g + 1) * (g + 1)}
+    return 44 * 4 + 4 * elems + leaf[pc.mode]
+
+
+def tile_row_bytes(pc):
+    """Bytes of one tile as laid out: 3 rows of 512 B, 8 more for a grid."""
+    return 512 * (3 + (ck.GRID_ROWS if pc.mode == "grid" else 0))
+
+
+def cbvh_bound(pc, st, occluded):
+    """Least time the card could take for what this run's rays needed of
+    a compressed kernel: the larger of bytes / memory rate (rays in,
+    results out, the used part of every touched node row and tile once)
+    and counted float32 operations / the non-tensor fp32 peak."""
+    out_bytes = 1 if occluded else 16
+    nbytes = (st["rays"] * (8 * 4 + out_bytes) + st["nodes_touched"] * 128
+              + st["tiles_touched"] * tile_used_bytes(pc))
+    flops = (st["top_nodes"] * 4 * SLAB_FLOPS
+             + st["tiles_entered"] * TILE_ENTRY_FLOPS
+             + st["quad_nodes"] * QUAD_NODE_FLOPS
+             + st["leaf_tests"] * LEAF_FLOPS[pc.mode])
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FP32_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def cbvh_times(label, pc, flat):
+    """Times, counters and bound of both compressed kernels on a batch."""
+    out = {}
+    n = flat.tnear.shape[0]
+    for mode, occl in (("closest", False), ("occluded", True)):
+        if occl:
+            ms = time_ms(lambda: ck.cbvh_occluded_trace(pc, flat))
+            _o, st = ck.cbvh_occluded_trace(pc, flat, stats=True)
+        else:
+            ms = time_ms(lambda: ck.cbvh_trace(pc, flat))
+            st = ck.cbvh_trace(pc, flat, stats=True)[4]
+        if st["dropped_pushes"] != 0:
+            raise AssertionError(f"{label}: dropped pushes")
+        bound = cbvh_bound(pc, st, occl)
+        out[mode] = {"ms": ms, "stats": st, "bound": bound}
+        log(f"  cbvh {mode}, {label}, {n} rays: {ms:.3f} ms, "
+            f"{n / ms / 1e3:.1f} Mray/s; per ray "
+            f"{st['top_nodes'] / n:.2f} top nodes, "
+            f"{st['tiles_entered'] / n:.2f} tiles entered, "
+            f"{st['quad_nodes'] / n:.2f} quadtree nodes, "
+            f"{st['leaf_tests'] / n:.2f} leaves; "
+            f"{st['nodes_touched']} of {pc.num_nodes} node rows and "
+            f"{st['tiles_touched']} of {pc.num_tiles} tiles touched; "
+            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"(bytes {bound['bytes'] / 1e6:.1f} MB -> "
+            f"{bound['bytes_ms']:.4f} ms, operations "
+            f"{bound['flops'] / 1e9:.2f} GFLOP -> {bound['flops_ms']:.4f} ms)"
+            f": {100 * bound['bound_ms'] / ms:.1f} % of the kernel's time")
+    return out
+
+
+def check_subdiv_hits(label, hits, shape, faces):
+    """Hit fields of a compressed or eager subdivision scene: patch uv in
+    [0, 1], prim ids base faces."""
+    if hits.t.shape != shape or hits.ng.shape != shape + (3,):
+        raise AssertionError(f"{label}: wrong output shapes")
+    valid = hits.valid
+    if not (torch.isfinite(hits.t[valid]).all()
+            and torch.isfinite(hits.ng).all()
+            and (hits.u[valid] >= -1e-4).all()
+            and (hits.u[valid] <= 1 + 1e-4).all()
+            and (hits.v[valid] >= -1e-4).all()
+            and (hits.v[valid] <= 1 + 1e-4).all()
+            and (hits.prim_id[valid] >= 0).all()
+            and (hits.prim_id[valid] < faces).all()
+            and torch.isinf(hits.t[~valid]).all()):
+        raise AssertionError(f"{label}: hit fields out of range")
+
+
+def check_conservative(label, exact, approx, min_cover=0.995,
+                       max_behind=0.005):
+    """At least `min_cover` of the rays: a hit of the exact surface is a
+    hit of the conservative mode; at most `max_behind` of the common hits
+    lie more than CONSERVATIVE_EPS behind the exact one (quantized
+    heights and the bilinear slab are not exact on a noisy surface)."""
+    ve, vc = exact.valid, approx.valid
+    cover = float((vc | ~ve).float().mean())
+    both = ve & vc
+    dt = (exact.t - approx.t)[both]
+    behind = float((dt < -CONSERVATIVE_EPS).float().mean())
+    if cover < min_cover or behind > max_behind:
+        raise AssertionError(f"{label}: covers {cover:.5f} of the exact "
+                             f"hits, {behind:.5f} lie behind the surface")
+    log(f"  {label}: {int(ve.sum())} exact hits, {int(vc.sum())} "
+        f"conservative; {100 * cover:.4f} % of the rays covered, "
+        f"{100 * behind:.4f} % more than {CONSERVATIVE_EPS} behind the exact "
+        f"hit; t_exact - t: min {float(dt.min()):.4g}, median "
+        f"{float(dt.median()):.4g}, max {float(dt.max()):.4g}")
+
+
+def hits_head(h, k):
+    """The first k rays of flat hits."""
+    return type(h)(*(a[:k] for a in h))
+
+
+def grid_triangles(tiles):
+    """The two triangles of every cell of a grid-mode accel, with the
+    kernel's diagonal and vertex order, as a triangle mesh."""
+    g = tiles.grid.cpu().numpy()
+    T, n = g.shape[0], g.shape[1]
+    verts = g.reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    v00 = (i * n + j).reshape(-1)
+    v10, v01, v11 = v00 + n, v00 + 1, v00 + n + 1
+    cell = np.concatenate([np.stack([v00, v10, v01], 1),
+                           np.stack([v11, v01, v10], 1)])
+    idx = (cell[None] + (np.arange(T) * n * n)[:, None, None]).reshape(-1, 3)
+    return verts, idx.astype(np.int32)
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -492,13 +812,15 @@ def main() -> int:
     # a build directory left by another machine is deleted, not trusted
     shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME], verbose=True)
+    nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME, ck.KERNEL_NAME],
+                         verbose=True)
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     if not sah_native.native_available():
         raise AssertionError("the native SAH builder did not build")
     gxx_s = time.perf_counter() - t0
-    log(f"[2] build: nvcc rowtrace2.cu and packet.cu together {nvcc_s:.1f} s, "
+    log(f"[2] build: nvcc rowtrace2.cu, packet.cu and cbvh.cu together "
+        f"{nvcc_s:.1f} s, "
         f"g++ sah_builder.cpp {gxx_s:.1f} s")
 
     # -- 3. kernels vs plain versions, small scenes --------------------------
@@ -507,6 +829,8 @@ def main() -> int:
     small_err = small_scene_checks(dev.device)
     log("[3b] packet kernel vs plain version on small scenes")
     pk_small_err = packet_small_scene_checks(dev.device)
+    log("[3c] compressed kernels vs plain versions on small scenes")
+    cb_small_err, cbo_small_err = cbvh_small_scene_checks(dev.device)
     if args.quick:
         log("--quick: stopping before the full-size phases")
         return 0
@@ -852,10 +1176,240 @@ def main() -> int:
         f"{time_ms(lambda: pk.occluded_packet_kernel(scs.packet, rays)):.3f} "
         "ms unsorted; the scene path does not sort")
 
+    # -- 9. the compressed subdivision path at full size --------------------
+    log(f"[9] compressed path: sphere_cage({SUBDIV_CAGE}) displaced by fBm "
+        f"noise, set_levels{SUBDIV_LEVELS}, bvh4.compressed.leaf")
+    big_mesh = sphere_cage(SUBDIV_CAGE, noise_displacement)
+    faces = len(big_mesh[1])
+    prof.samples.clear()
+    t0 = time.perf_counter()
+    sub = subdiv_scene("", big_mesh, SUBDIV_LEVELS, "leaf")
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    ccs = sub.committed
+    pc = ccs.compressed_kernel
+    log(f"  commit {commit_s:.1f} s: " + ", ".join(
+        f"{k} {prof.stats(k)['avg']:.2f} s" for k in prof.samples))
+    cells = pc.num_tiles * (1 << pc.comp_level) ** 2
+    log(f"  {faces} faces, {pc.num_tiles} tiles of "
+        f"{(1 << pc.comp_level) ** 2} cells = {cells} cells, top BVH4 of "
+        f"{pc.num_nodes} nodes in {pc.top_depth} levels; a tile uses "
+        f"{tile_used_bytes(pc)} B of the {tile_row_bytes(pc)} B it is laid "
+        f"out in; packed accel {pc.device_bytes / 1e6:.1f} MB on the card, "
+        f"the committed scene {_scene_bytes(ccs) / 1e6:.1f} MB in all (it "
+        "keeps the unpacked tiles beside the packed rows)")
+    tiles_a_face = (1 << (SUBDIV_LEVELS[0] - SUBDIV_LEVELS[1])) ** 2
+    if ccs.tris.num_prims != 0 or pc.num_tiles != faces * tiles_a_face:
+        raise AssertionError("the full-size scene is not subdiv-only with "
+                             f"{tiles_a_face} tiles a face")
+    with Launches() as lc:
+        h_c = sub.intersect(rays)
+        occ_c = sub.occluded(rays)
+        h_cf = sub.intersect(frame, coherent=True)
+        occ_cf = sub.occluded(frame)
+        torch.cuda.synchronize()
+    lc.expect("compressed requests", 0, 0)
+    lc.expect_cbvh("2 intersect + 2 occluded requests", 2, 2)
+    check_subdiv_hits("compressed, incoherent", h_c, (n,), faces)
+    check_subdiv_hits("compressed, frame", h_cf, (FRAME[1], FRAME[0]),
+                      faces)
+    for label, h, o in (("incoherent", h_c, occ_c), ("frame", h_cf, occ_cf)):
+        if (h.valid & ~o).any():
+            raise AssertionError(f"compressed, {label}: a hit is not occluded")
+        frac = float(h.valid.float().mean())
+        ofrac = float(o.float().mean())
+        if not (0.05 < frac < 0.9 and ofrac < 0.9):
+            raise AssertionError(f"compressed, {label}: hit fraction {frac}, "
+                                 f"occluded {ofrac}")
+        log(f"  {label}: hit fraction {frac:.4f}, occluded "
+            f"{ofrac:.4f}, occluded covers every hit")
+    nb4 = 1 << B4_PLAIN_LOG2
+    head4 = Rays(*(a[:nb4].contiguous() for a in rays))
+    cb_full_err, cb_plain_ms, cbo_plain_ms, cbo_full_err = compare_cbvh_plain(
+        pc, head4, f"{pc.num_tiles} tiles, the first 2^{B4_PLAIN_LOG2} rays "
+        "of the main path")
+    t_head = ck.intersect_compressed_kernel(pc, head4)
+    if not (torch.equal(t_head.t, h_c.t[:nb4])
+            and torch.equal(t_head.u, h_c.u[:nb4])):
+        raise AssertionError("the request and the kernel's wrapper disagree")
+    # the eager tessellation of the same mesh, traced by the packet kernel
+    t0 = time.perf_counter()
+    eager = subdiv_scene("", big_mesh, SUBDIV_LEVELS)
+    torch.cuda.synchronize()
+    ecs = eager.committed
+    log(f"  eager commit {time.perf_counter() - t0:.1f} s: "
+        f"{ecs.tris.num_prims} triangles, BVH{ecs.packet.width} of "
+        f"{ecs.packet.num_nodes} nodes in {ecs.packet.depth} levels")
+    if ecs.rowtrace is not None or ecs.tris.num_prims != 2 * cells:
+        raise AssertionError("the eager scene is not two triangles a cell "
+                             "on the packet path")
+    with Launches() as lc:
+        h_e = eager.intersect(rays)
+        h_ef = eager.intersect(frame, coherent=True)
+        torch.cuda.synchronize()
+    lc.expect("eager requests", 0, 2)
+    check_subdiv_hits("eager", h_e, (n,), faces)
+    check_conservative("leaf vs eager triangles, incoherent", h_e, h_c)
+    check_conservative("leaf vs eager triangles, frame", h_ef, h_cf)
+    del eager, ecs, h_e, h_ef
+
+    # -- 10. the other modes and node flavors on the smaller cage -----------
+    log(f"[10] sphere_cage({SUBDIV_SMALL_CAGE}), set_levels"
+        f"{SUBDIV_SMALL_LEVELS}: every mode and node flavor, a mixed scene")
+    small_mesh = sphere_cage(SUBDIV_SMALL_CAGE, noise_displacement)
+    small_faces = len(small_mesh[1])
+    n18 = 1 << 18
+    r18 = Rays(*(a[:n18].contiguous() for a in rays))
+    eager_s = subdiv_scene("", small_mesh, SUBDIV_SMALL_LEVELS)
+    h_es = eager_s.intersect(r18)
+    by_mode = {}
+    for mode in ("grid", "leaf", "box"):
+        sc = subdiv_scene("", small_mesh, SUBDIV_SMALL_LEVELS, mode)
+        with Launches() as lc:
+            h = sc.intersect(r18)
+            o = sc.occluded(r18)
+            torch.cuda.synchronize()
+        lc.expect_cbvh(f"{mode} requests", 1, 1)
+        check_subdiv_hits(mode, h, (n18,), small_faces)
+        if (h.valid & ~o).any():
+            raise AssertionError(f"{mode}: a hit is not occluded")
+        by_mode[mode] = (sc, h)
+        err, _, _, occ_err = compare_cbvh_plain(
+            sc.committed.compressed_kernel,
+            Rays(*(a[:nb4].contiguous() for a in rays)),
+            f"{mode}, {sc.committed.compressed_kernel.num_tiles} tiles")
+        cb_full_err = max(cb_full_err, err)
+        cbo_full_err = max(cbo_full_err, occ_err)
+        if mode != "grid":
+            check_conservative(f"{mode} vs eager triangles", h_es, h)
+    # grid mode against the eager triangles (the other diagonal in half of
+    # the cells of a noisy surface: the valid masks and the 99th percentile
+    # of |dt| are held) and against its own cells as a triangle mesh (the
+    # same triangles: 1e-4 relative)
+    sc_g, h_g = by_mode["grid"]
+    same = float((h_g.valid == h_es.valid).float().mean())
+    both = h_g.valid & h_es.valid
+    dabs = (h_g.t - h_es.t)[both].abs()
+    dmax, d99 = float(dabs.max()), float(dabs.quantile(0.99))
+    gverts, gidx = grid_triangles(sc_g.committed.compressed.tiles)
+    gscene = ett.Scene(ett.Device(
+        "ignore_config_files=1,tri_accel=bvh4.triangle4.packet"))
+    gscene.attach(ett.TriangleMesh(gverts, gidx))
+    gscene.commit()
+    h_gt = gscene.intersect(r18)
+    same_own = float((h_g.valid == h_gt.valid).float().mean())
+    both = h_g.valid & h_gt.valid
+    rel = float(((h_g.t - h_gt.t).abs() / h_gt.t.abs())[both].max())
+    log(f"  grid vs eager triangles: valid equal on {100 * same:.4f} % of "
+        f"the rays, |dt| 99th percentile {d99:.3g}, max {dmax:.3g}; grid vs "
+        f"its own cells as {len(gidx)} triangles: valid equal on "
+        f"{100 * same_own:.4f} %, t within {rel:.3g} relative")
+    if same < 0.995 or d99 > 2e-2 or same_own < 0.9999 or rel > 1e-4:
+        raise AssertionError("grid mode disagrees with the triangles")
+    # mode full and flavors non / mid run in torch ops (no kernel)
+    for mode, flavor in (("full", "com"), ("box", "non"), ("leaf", "mid")):
+        sc = subdiv_scene("", small_mesh, SUBDIV_SMALL_LEVELS, mode, flavor)
+        if sc.committed.compressed_kernel is not None:
+            raise AssertionError(f"{mode}/{flavor} has a packed accel")
+        with Launches() as lc:
+            h = sc.intersect(head4)
+            o = sc.occluded(head4)
+            torch.cuda.synchronize()
+        lc.expect_cbvh(f"{mode}/{flavor}", 0, 0)
+        check_subdiv_hits(f"{mode}/{flavor}", h, (nb4,), small_faces)
+        if (h.valid & ~o).any():
+            raise AssertionError(f"{mode}/{flavor}: a hit is not occluded")
+        ref_h = hits_head(h_es, nb4)
+        check_conservative(f"{mode}/{flavor} (torch ops) vs eager triangles",
+                           ref_h, h)
+    # a mixed scene: the sphere over a ground plane of triangles
+    mixed = subdiv_scene("", small_mesh, SUBDIV_SMALL_LEVELS, "leaf",
+                         plane=True)
+    with Launches() as lc:
+        h_m = mixed.intersect(r18)
+        o_m = mixed.occluded(r18)
+        torch.cuda.synchronize()
+    lc.expect("mixed scene", 0, 2)
+    lc.expect_cbvh("mixed scene", 1, 1)
+    # the walk over the tiles starts from the plane's t, which moves the
+    # far end the projected ray is fitted to: the sphere's hits agree with
+    # the subdiv-only scene's within 1e-4 relative on most rays, not all
+    h_l = by_mode["leaf"][1]
+    on_plane = h_m.valid & (h_m.geom_id == 0)
+    on_sphere = h_m.valid & (h_m.geom_id == 1)
+    agree = float((on_sphere | (h_l.valid & on_plane) == h_l.valid)
+                  .float().mean())
+    both = on_sphere & h_l.valid
+    close = float(((h_m.t - h_l.t).abs() <= 1e-4 * h_l.t)[both]
+                  .float().mean())
+    if not (on_plane.any() and on_sphere.any() and agree >= 0.999
+            and close >= 0.99
+            and (h_m.t[on_plane] < h_l.t[on_plane]).all()
+            and not (h_m.valid & ~o_m).any()):
+        raise AssertionError("the mixed scene does not fold both accels: "
+                             f"masks agree on {agree:.5f}, t on {close:.5f}")
+    log(f"  mixed scene: {int(on_sphere.sum())} hits on the sphere "
+        f"({100 * close:.3f} % within 1e-4 relative of the subdiv-only "
+        f"scene's, masks consistent on {100 * agree:.4f} % of the rays), "
+        f"{int(on_plane.sum())} on the plane, each nearer than the sphere's")
+    del by_mode, mixed, eager_s, gscene
+
+    # -- 11. the displacement_geometry tutorial -----------------------------
+    log("[11] displacement_geometry tutorial, --compress.leaf")
+    dapp = displacement_tutorial.make_app()
+    with Launches() as lc:
+        rc = dapp.run(["--compress.leaf", "--benchmark", "1", "3",
+                       "-rtcore", "ignore_config_files=1"])
+        torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"the tutorial returned {rc}")
+    lc.expect("tutorial: 5 frames of 2 batches", 0, 10)
+    lc.expect_cbvh("tutorial: 5 frames of 2 batches", 5, 5)
+    small_size = (64, 48)
+    imgs = {}
+    for where, rtcore in (("card", ""), ("cpu", "device=cpu")):
+        st = displacement_tutorial.build_scene("bvh4.compressed.leaf",
+                                               rtcore=rtcore)
+        img, _nr = displacement_tutorial.render_frame(st, dapp.camera,
+                                                      small_size)
+        imgs[where] = img.cpu().numpy()
+    diff = np.abs(imgs["card"] - imgs["cpu"]).max(-1)
+    bad = float((diff > 1.5 / 255).mean())
+    lit = float((imgs["card"].max(-1) > 0).mean())
+    if not (np.isfinite(imgs["card"]).all() and bad <= 0.005 and lit > 0.3):
+        raise AssertionError(f"tutorial: {bad:.4%} of the pixels differ from "
+                             f"the CPU render, {lit:.2%} lit")
+    log(f"  tutorial at {dapp.default_size[0]}x{dapp.default_size[1]} ran; "
+        f"{small_size[0]}x{small_size[1]} frame: {bad:.4%} of the pixels "
+        "differ from this package's CPU render by more than 1.5/255 "
+        f"(budget 0.5 %), {lit:.2%} of the pixels lit")
+
+    # -- 12. times of the compressed kernels --------------------------------
+    log("[12] compressed kernels: times (CUDA events, median of 5 after a "
+        "warm-up), counters and bounds")
+    cb_inc = cbvh_times(f"{pc.num_tiles} tiles leaf, 2^{LOG2_RAYS} "
+                        "incoherent", pc, rays)
+    cbvh_times(f"{pc.num_tiles} tiles leaf, {FRAME[0]}x{FRAME[1]} coherent "
+               "frame", pc, frame_flat)
+    for label, fn in (
+            ("intersect request, compressed path, 2^21 rays",
+             lambda: sub.intersect(rays)),
+            ("occluded request, compressed path, 2^21 rays",
+             lambda: sub.occluded(rays)),
+            ("intersect request, compressed path, coherent frame",
+             lambda: sub.intersect(frame, coherent=True))):
+        log(f"  {label}: {time_ms(fn):.3f} ms")
+    log(f"  plain versions, 2^{B4_PLAIN_LOG2} rays: closest "
+        f"{cb_plain_ms:.0f} ms, occluded {cbo_plain_ms:.0f} ms")
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to its first
     # 2^18 rays. packet: ms and bound_ms belong to the closest-hit launch
-    # of (a) (2^21 rays, 99,012 triangles), plain_ms to its first 2^16 rays
+    # of (a) (2^21 rays, 99,012 triangles), plain_ms to its first 2^16 rays.
+    # cbvh and cbvh_occluded: ms and bound_ms belong to the 2^21 incoherent
+    # rays on the main-c scene (`pc.num_tiles` tiles), plain_ms to their
+    # first 2^16 rays; cbvh_occluded's max_abs_err counts the rays whose
+    # answer differs from the plain version's
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
@@ -875,6 +1429,28 @@ def main() -> int:
         "plain_rays": nb2,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],
         "bound_by": pk_a["closest"]["bound"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "cbvh", "route": "cuda",
+        "source": "embree_tpu_torch/csrc/cbvh.cu",
+        "replaces": "embree_tpu/traverse/pallas_cbvh.py:175",
+        "launches": Launches.totals["cbvh"],
+        "max_abs_err": max(cb_small_err, cb_full_err),
+        "ms": cb_inc["closest"]["ms"], "plain_ms": cb_plain_ms,
+        "plain_rays": nb4,
+        "bound_ms": cb_inc["closest"]["bound"]["bound_ms"],
+        "bound_by": cb_inc["closest"]["bound"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "cbvh_occluded", "route": "cuda",
+        "source": "embree_tpu_torch/csrc/cbvh.cu",
+        "replaces": "embree_tpu/traverse/pallas_cbvh.py:771",
+        "launches": Launches.totals["cbvh_occluded"],
+        "max_abs_err": max(cbo_small_err, cbo_full_err),
+        "ms": cb_inc["occluded"]["ms"], "plain_ms": cbo_plain_ms,
+        "plain_rays": nb4,
+        "bound_ms": cb_inc["occluded"]["bound"]["bound_ms"],
+        "bound_by": cb_inc["occluded"]["bound"]["bound_by"],
         "library_ms": None,
     }]}
     for k in kernels["kernels"]:

@@ -4,12 +4,14 @@ Same sub-package and function names as the JAX package, so the
 counterpart of a module is found by its path; plain functions on torch
 tensors inside, an explicit `torch.device` everywhere, and hand-written
 CUDA kernels (`csrc/`) where the JAX package has Pallas kernels. So far:
-triangle and quad scenes; commit (SAH BVH4/BVH8 + packing, treelet
-scene for large meshes); closest-hit / any-hit queries through the
-per-ray treelet traversal (large incoherent batches) or the BVH packet
-kernel (everything else), with ray masks and intersection filters; the
-differentiable hit (`diff.hit`); the `triangle_geometry` tutorial
-(`render.tutorials`).
+triangle, quad and subdivision-surface scenes; commit (SAH BVH4/BVH8 +
+packing, treelet scene for large meshes, the compressed per-tile
+quadtree for displaced Catmull-Clark surfaces); closest-hit / any-hit
+queries through the per-ray treelet traversal (large incoherent
+batches), the BVH packet kernel (everything else on triangles) and the
+compressed-tile kernels, with ray masks and intersection filters; the
+differentiable hit (`diff.hit`); the `triangle_geometry` and
+`displacement_geometry` tutorials (`render.tutorials`).
 
 Quick start::
 
@@ -23,7 +25,7 @@ Quick start::
 from .core.config import State
 from .core.device import Device, Error, RaytracerError
 from .core.rayhit import Hits, INVALID_ID, Rays, make_rays, miss_hits
-from .scene.geometry import Geometry, QuadMesh, TriangleMesh
+from .scene.geometry import Geometry, QuadMesh, SubdivMesh, TriangleMesh
 from .scene.scene import (BuildQuality, CommittedScene, Scene, scene_intersect,
                           scene_occluded)
 
@@ -32,7 +34,7 @@ __version__ = "0.1.0"
 __all__ = [
     "State", "Device", "Error", "RaytracerError",
     "Rays", "Hits", "make_rays", "miss_hits", "INVALID_ID",
-    "Geometry", "TriangleMesh", "QuadMesh",
+    "Geometry", "TriangleMesh", "QuadMesh", "SubdivMesh",
     "Scene", "BuildQuality", "CommittedScene",
     "scene_intersect", "scene_occluded",
 ]

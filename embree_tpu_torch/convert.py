@@ -3,7 +3,9 @@
 `committed_scene_from_reference` takes the committed state of
 `embree_tpu` as plain numpy arrays (the caller does the `np.asarray` on
 the JAX side; nothing here sees a JAX object) and returns this
-package's `CommittedScene` on the given device.
+package's `CommittedScene` on the given device;
+`compressed_accel_from_reference` does the same for a compressed
+subdivision accel, so that both packages trace the same tiles.
 """
 from __future__ import annotations
 
@@ -11,9 +13,11 @@ import numpy as np
 import torch
 
 from .build.bvh import BVH
+from .build.cbvh import CompressedTiles
 from .build.treelets import BLOCK_ROWS, TreeletScene
 from .scene.prims import TrianglePrims
 from .scene.scene import CommittedScene
+from .traverse.cbvh import CompressedAccel
 from .traverse.packet_kernel import PackedScene, tree_depth
 
 
@@ -101,3 +105,35 @@ def committed_scene_from_reference(arrays: dict, device) -> CommittedScene:
         world_lower=_tensor(arrays["world_lower"], f32, device, (3,)),
         world_upper=_tensor(arrays["world_upper"], f32, device, (3,)),
         backface_cull=bool(arrays["backface_cull"]))
+
+
+def compressed_accel_from_reference(arrays: dict, device) -> CompressedAccel:
+    """Build a CompressedAccel from the JAX package's.
+
+    `arrays` holds numpy arrays / python scalars: the top-level BVH4 as
+    `top.lower`, `top.upper` (M, 4, 3) f32, `top.child`, `top.count`
+    (M, 4) i32, `top.prim_order` (T,) i32; every array field of the
+    reference's `CompressedTiles` as `tiles.<name>` (space, proj, iproj,
+    frustum, nodes, nodes_full, uv0, uvd, geom_id, prim_id, leaf_z,
+    extent, grid); and `tiles.comp_level`, `tiles.mode`, `tiles.flavor`.
+    `traverse.cbvh_kernel.accel_arrays` gives the same dict for an accel
+    of this package."""
+    device = torch.device(device)
+    f32, i32 = np.float32, np.int32
+    top = BVH(lower=_tensor(arrays["top.lower"], f32, device, (-1, 4, 3)),
+              upper=_tensor(arrays["top.upper"], f32, device, (-1, 4, 3)),
+              child=_tensor(arrays["top.child"], i32, device, (-1, 4)),
+              count=_tensor(arrays["top.count"], i32, device, (-1, 4)),
+              prim_order=_tensor(arrays["top.prim_order"], i32, device))
+    ints = ("nodes", "geom_id", "prim_id", "leaf_z")
+    fields = {k: _tensor(arrays[f"tiles.{k}"], i32 if k in ints else f32,
+                         device) for k in CompressedTiles.ARRAYS}
+    T = fields["space"].shape[0]
+    if top.prim_order.shape[0] != T:
+        raise ValueError(f"{top.prim_order.shape[0]} top-level leaves for "
+                         f"{T} tiles")
+    tiles = CompressedTiles(**fields,
+                            comp_level=int(arrays["tiles.comp_level"]),
+                            mode=str(arrays["tiles.mode"]),
+                            flavor=str(arrays["tiles.flavor"]))
+    return CompressedAccel(top=top, tiles=tiles)

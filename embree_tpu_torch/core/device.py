@@ -18,6 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..subdiv.cache import global_cache
 from .config import State
 
 
@@ -65,6 +66,9 @@ class Device:
             if self.device.index is None:
                 self.device = torch.device("cuda",
                                            torch.cuda.current_device())
+        # setCacheSize(tessellation_cache_size) at device creation
+        # (device.cpp:78)
+        global_cache().set_size(self.state.tessellation_cache_size)
         if self.state.verbose >= 1:
             self.print_banner()
 

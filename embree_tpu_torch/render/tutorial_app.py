@@ -19,9 +19,13 @@ application waits for the device (`torch.cuda.synchronize()`) inside every
 timed frame, so the timings are of finished frames.
 
 `-rtcore` carries the Device config string: the tutorials run on the
-CUDA device unless it says `device=cpu`. The fork's `--compress.*`,
-`--subdLvl` and `--compLvl` flags parse and select nothing yet (the
-compressed subdivision accel is not ported).
+CUDA device unless it says `device=cpu`. The fork's `--compress.*` flags
+end up as `args.subdiv_mode`, the `subdiv_accel` value a tutorial with
+subdivision surfaces commits under (`--compress.ref`, also spelled
+`--compress.full`, is the full-precision reference mode). `--subdLvl`
+and `--compLvl` are parsed and clamped for the tutorials that read them
+(`viewer`, `subdivision_geometry`: not ported yet);
+`displacement_geometry` fixes its own levels as the reference does.
 """
 from __future__ import annotations
 
@@ -73,7 +77,8 @@ class TutorialApplication:
         p.add_argument("--compress.grid", dest="compress_grid", action="store_true")
         p.add_argument("--compress.leaf", dest="compress_leaf", action="store_true")
         p.add_argument("--compress.box", dest="compress_box", action="store_true")
-        p.add_argument("--compress.ref", dest="compress_ref", action="store_true")
+        p.add_argument("--compress.ref", "--compress.full",
+                       dest="compress_ref", action="store_true")
         p.add_argument("--subdLvl", type=int, default=5)
         p.add_argument("--compLvl", type=int, default=2)
         return p

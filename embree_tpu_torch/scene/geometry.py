@@ -3,7 +3,7 @@
 Counterpart of embree_tpu/scene/geometry.py (reference
 kernels/common/geometry.h + scene_*_mesh.*): buffer binding happens on
 the host; Scene.commit() flattens everything into immutable device
-tensors. Triangle and quad meshes only so far.
+tensors. Triangle, quad and subdivision meshes so far.
 """
 from __future__ import annotations
 
@@ -62,3 +62,41 @@ class QuadMesh(Geometry):
     @property
     def num_prims(self) -> int:
         return int(self.indices.shape[0])
+
+
+class SubdivMesh(Geometry):
+    """RTC_GEOMETRY_TYPE_SUBDIVISION (scene_subdiv_mesh.{h,cpp}).
+
+    Face-vertex topology with optional crease tags; evaluated by the
+    subdiv/ package (Catmull-Clark limit surface + optional displacement).
+    `displacement` is a *function* (P, Ng, u, v) -> P' on numpy arrays of
+    the subdivided vertices and their normals, replacing the reference's
+    C displacement callback ABI (subdivpatch1base_eval.cpp:139-156); it
+    runs on the host at commit. Per-edge tessellation levels
+    (`edge_levels`) are not ported yet: commit raises for them.
+    """
+
+    def __init__(self, vertices, face_counts, face_indices,
+                 edge_creases=None, edge_crease_weights=None,
+                 vertex_creases=None, vertex_crease_weights=None,
+                 holes=None, displacement=None,
+                 tessellation_rate: int = 2, edge_levels=None):
+        super().__init__()
+        self.vertices = vertices                              # (V, 3)
+        self.face_counts = np.asarray(face_counts, np.int32)  # (F,)
+        self.face_indices = np.asarray(face_indices, np.int32)  # (sum counts,)
+        # RTC_BUFFER_TYPE_LEVEL analog: per face-corner tessellation rate
+        # for the edge (v_k, v_{k+1}) of each face, or None for uniform
+        self.edge_levels = (None if edge_levels is None
+                            else np.asarray(edge_levels, np.float32))
+        self.edge_creases = edge_creases
+        self.edge_crease_weights = edge_crease_weights
+        self.vertex_creases = vertex_creases
+        self.vertex_crease_weights = vertex_crease_weights
+        self.holes = holes
+        self.displacement = displacement
+        self.tessellation_rate = tessellation_rate
+
+    @property
+    def num_prims(self) -> int:
+        return int(self.face_counts.shape[0])

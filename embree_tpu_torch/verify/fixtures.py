@@ -1,6 +1,6 @@
 """Procedural scene creators for tests and the on-card smoke run.
 
-Copy (numpy only) of the two creators of embree_tpu/verify/fixtures.py
+Copy (numpy only) of the creators of embree_tpu/verify/fixtures.py
 that the ported modules use.
 
 Analog of tutorials/common/scenegraph/geometry_creation.cpp
@@ -37,6 +37,25 @@ def triangle_sphere(center, radius: float, n: int):
     return verts.astype(np.float32), np.asarray(tris, np.int32)
 
 
+def quad_sphere(center, radius: float, n: int):
+    """Lat-long sphere of n*n quads (createQuadSphere)."""
+    center = np.asarray(center, np.float32)
+    theta = np.linspace(0.0, np.pi, n + 1)
+    phi = np.linspace(0.0, 2.0 * np.pi, n + 1)[:-1]
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    x = np.sin(tt) * np.cos(pp)
+    y = np.cos(tt)
+    z = np.sin(tt) * np.sin(pp)
+    verts = np.stack([x, y, z], -1).reshape(-1, 3) * radius + center
+    idx = np.arange((n + 1) * n).reshape(n + 1, n)
+    quads = []
+    for i in range(n):
+        for j in range(n):
+            j2 = (j + 1) % n
+            quads.append([idx[i, j], idx[i + 1, j], idx[i + 1, j2], idx[i, j2]])
+    return verts.astype(np.float32), np.asarray(quads, np.int32)
+
+
 def random_triangles(rng: np.random.Generator, n: int, extent: float = 10.0,
                      size: float = 0.5):
     """Random triangle soup for stress/overlap tests (verify.cpp:1093)."""
@@ -46,3 +65,15 @@ def random_triangles(rng: np.random.Generator, n: int, extent: float = 10.0,
     verts = tri.reshape(-1, 3)
     idx = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
     return verts, idx
+
+
+def subdiv_cube():
+    """8-vertex cube as a 6-quad subdiv control mesh."""
+    verts = np.array([
+        [-1, -1, -1], [+1, -1, -1], [+1, -1, +1], [-1, -1, +1],
+        [-1, +1, -1], [+1, +1, -1], [+1, +1, +1], [-1, +1, +1]], np.float32)
+    faces = np.array([
+        [0, 1, 2, 3], [4, 7, 6, 5], [0, 4, 5, 1],
+        [1, 5, 6, 2], [2, 6, 7, 3], [3, 7, 4, 0]], np.int32)
+    counts = np.full(6, 4, np.int32)
+    return verts, counts, faces.reshape(-1)

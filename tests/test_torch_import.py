@@ -13,8 +13,9 @@ import torch
 
 import embree_tpu_torch as ett
 from embree_tpu_torch.build.treelets import build_treelet_scene
+from embree_tpu_torch.traverse import cbvh_kernel as ck
 from embree_tpu_torch.traverse import rowtrace2 as rt2
-from embree_tpu_torch.verify.fixtures import triangle_sphere
+from embree_tpu_torch.verify.fixtures import subdiv_cube, triangle_sphere
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "embree_tpu_torch")
@@ -78,6 +79,45 @@ def test_import_and_tiny_scene_pull_in_no_jax():
     assert "PORT_OK" in out.stdout
 
 
+def test_subdiv_scene_and_tutorial_pull_in_no_jax():
+    """In a fresh interpreter: commit a compressed subdivision scene on
+    the CPU, query it, and render the displacement tutorial's scene."""
+    code = (
+        "import sys, numpy as np\n"
+        "import embree_tpu_torch as ett\n"
+        "from embree_tpu_torch.verify.fixtures import subdiv_cube\n"
+        "from embree_tpu_torch.render.camera import Camera\n"
+        "from embree_tpu_torch.render.tutorials import (\n"
+        "    displacement_geometry as dg)\n"
+        "dev = ett.Device('ignore_config_files=1,'\n"
+        "                 'subdiv_accel=bvh4.compressed.leaf', device='cpu')\n"
+        "sc = ett.Scene(dev)\n"
+        "sc.attach(ett.SubdivMesh(*subdiv_cube()))\n"
+        "sc.set_levels(3, 2)\n"
+        "sc.commit()\n"
+        "rays = ett.make_rays(np.array([[0., 0., -3.], [5., 5., -3.]]),\n"
+        "                     np.array([[0., 0., 1.], [0., 0., 1.]]),\n"
+        "                     device='cpu')\n"
+        "h = sc.intersect(rays)\n"
+        "assert h.valid.tolist() == [True, False], h.valid\n"
+        "assert 1.5 < float(h.t[0]) < 2.6, h.t\n"
+        "assert sc.occluded(rays).tolist() == [True, False]\n"
+        "st = dg.build_scene('bvh4.compressed.box', 2, 2,\n"
+        "                    rtcore='device=cpu')\n"
+        "img, _ = dg.render_frame(st, Camera(from_=(2.5, 2.5, 2.5),\n"
+        "                                    to=(0, 0, 0)), (16, 12))\n"
+        "assert img.shape == (12, 16, 3) and float(img.max()) > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'embree_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('PORT_OK')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "PORT_OK" in out.stdout
+
+
 def test_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -123,6 +163,34 @@ def test_cpu_tensors_take_plain_version_without_a_launch(monkeypatch):
         rt2.rowtrace2_stats(ts, rays)
 
 
+def test_compressed_wrappers_take_plain_versions_without_a_launch(
+        monkeypatch):
+    """On CPU tensors the compressed wrappers run their plain versions
+    and neither build nor launch a kernel; the scene's entry points go
+    through the wrappers."""
+    s = ett.Scene(ett.Device(
+        "ignore_config_files=1,subdiv_accel=bvh4.compressed.grid",
+        device="cpu"))
+    s.attach(ett.SubdivMesh(*subdiv_cube()))
+    s.set_levels(2, 2)
+    s.commit()
+    pc = s.committed.compressed_kernel
+    rays = ett.make_rays(np.array([[0., 0., -3.]]), np.array([[0., 0., 1.]]),
+                         device="cpu")
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the kernel path was taken for a CPU tensor")
+
+    monkeypatch.setattr(ck, "_load_kernel", no_kernel)
+    before = dict(ck.launches)
+    t, _u, _v, tile, stats = ck.cbvh_trace(pc, rays)
+    occ, _ = ck.cbvh_occluded_trace(pc, rays)
+    assert tile.item() >= 0 and 1.5 < t.item() < 2.6 and stats is None
+    assert occ.item() and s.intersect(rays).valid.item()
+    assert s.occluded(rays).item()
+    assert ck.launches == before == {"closest": 0, "occluded": 0}
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     verts, idx = triangle_sphere((0, 0, 0), 1.0, 8)
     v = verts[idx]
@@ -151,11 +219,15 @@ def test_no_try_around_the_launch():
     path."""
     for rel in ("traverse/rowtrace2.py", "traverse/packet_kernel.py",
                 "core/nvcc.py", "scene/scene.py", "traverse/packet.py",
-                "traverse/stream.py", "diff/hit.py", "convert.py"):
+                "traverse/stream.py", "diff/hit.py", "convert.py",
+                "traverse/cbvh.py", "traverse/cbvh_kernel.py",
+                "scene/subdiv_accel.py",
+                "render/tutorials/displacement_geometry.py"):
         with open(os.path.join(PKG, rel)) as f:
             tree = ast.parse(f.read())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{rel} has a try statement"
-    for rel in ("rowtrace2.py", "packet_kernel.py"):
+    for rel in ("rowtrace2.py", "packet_kernel.py", "cbvh.py",
+                "cbvh_kernel.py"):
         with open(os.path.join(PKG, "traverse", rel)) as f:
             assert "torch.compile" not in f.read()
