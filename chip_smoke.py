@@ -28,7 +28,16 @@ the public entry points:
     / `scene.occluded`, held against the eager tessellation of the same
     mesh (8.1M triangles through the packet kernel); the other modes and
     node flavors on a 960-face cage; and the `displacement_geometry`
-    tutorial.
+    tutorial;
+  * the motion-blur path (kernels `mb` and `mb_occluded`): the
+    998,284-triangle sphere as one `TriangleMeshMB` with three timesteps
+    (kinked motion), 2^21 incoherent rays and a 1920x1080 frame at
+    random per-ray times through `scene.intersect(..., time=)` and
+    `occluded_mb_kernel`, held against the static scenes of its first
+    and last knot (packet kernel) and against a brute-force test of the
+    lerped triangles; small MB scenes (two to five timesteps, temporal
+    splits, quads, a subdivision mesh, beside static triangles and
+    beside a compressed accel); and the `motion_blur_geometry` tutorial.
 
 Answers are checked against the plain versions, against a brute-force
 test of every triangle, between the two kernels, and against autograd;
@@ -72,19 +81,22 @@ from embree_tpu_torch.render.noise import fbm_displacement  # noqa: E402
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     displacement_geometry as displacement_tutorial)
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    motion_blur_geometry as mb_tutorial)
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
     triangle_geometry as tutorial)
 from embree_tpu_torch.scene.prims import prim_bounds_np  # noqa: E402
 from embree_tpu_torch.scene.scene import _scene_bytes  # noqa: E402
 from embree_tpu_torch.traverse import cbvh_kernel as ck  # noqa: E402
+from embree_tpu_torch.traverse import mb_kernel as mk  # noqa: E402
 from embree_tpu_torch.traverse import packet_kernel as pk  # noqa: E402
 from embree_tpu_torch.traverse import rowtrace2 as rt2  # noqa: E402
 from embree_tpu_torch.traverse.moeller import intersect_triangle  # noqa: E402
 from embree_tpu_torch.traverse.packet import _finalize_hits  # noqa: E402
 from embree_tpu_torch.traverse.stream import (sort_rays_stream,  # noqa: E402
                                               unsort_by_perm)
-from embree_tpu_torch.verify.fixtures import (quad_sphere,  # noqa: E402
-                                              random_triangles, subdiv_cube,
-                                              triangle_sphere)
+from embree_tpu_torch.verify.fixtures import (  # noqa: E402
+    crossing_clusters, quad_sphere, random_triangles, subdiv_cube,
+    triangle_sphere)
 
 SCENE_RES = 707            # triangle_sphere(707) = 998,284 triangles
 SMALL_RES = 223            # triangle_sphere(223) = 99,012: under ROWTRACE_MIN_PRIMS
@@ -133,9 +145,30 @@ TILE_ENTRY_FLOPS = 190
 QUAD_NODE_FLOPS = 28 + 4 * SLAB_FLOPS
 LEAF_FLOPS = {"box": SLAB_FLOPS + 16, "leaf": SLAB_FLOPS + 95,
               "grid": 2 * TRI_FLOPS + 10}
+# the motion-blur path: knots 1 and 2 of main-mb (knot 0 is the sphere of
+# the treelet path), the seed of its per-ray times, the rays B6's plain
+# version walks, and the small scenes' rays
+MB_KNOTS = ((0.8, 0.3, 0.0), (1.6, -0.4, 0.0))
+MB_TIME_SEED = 0x7135
+MB_PLAIN_LOG2 = 16
+MB_SMALL_RAYS = 1 << 16
+# float32 operations of the MB walk, counted from csrc/mb.cu: a child's
+# slab test and its time gate, one knot box folded into the union (6
+# min/max), and one triangle test (9 lerps of 3 operations, then the
+# Moeller test without precomputed edges)
+MB_SLAB_FLOPS = SLAB_FLOPS + 2
+MB_KNOT_FLOPS = 6
+MB_TRI_FLOPS = 27 + TRI_FLOPS
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's heading ("[n] ...") gets the seconds since
+    the script started."""
+    if msg.startswith("["):
+        msg = f"{msg}  (at {time.perf_counter() - T_START:.0f} s)"
     print(msg, flush=True)
 
 
@@ -424,21 +457,31 @@ class Launches:
     """Sets every kernel's launch count to 0 on entry, reads them on
     exit and adds them to the run's totals."""
 
-    totals = {"rowtrace2": 0, "packet": 0, "cbvh": 0, "cbvh_occluded": 0}
+    totals = {"rowtrace2": 0, "packet": 0, "cbvh": 0, "cbvh_occluded": 0,
+              "mb": 0, "mb_occluded": 0}
 
     def __enter__(self):
         rt2.launches = 0
         pk.launches = 0
         ck.launches["closest"] = ck.launches["occluded"] = 0
+        mk.launches["closest"] = mk.launches["occluded"] = 0
         return self
 
     def __exit__(self, *exc):
         self.rowtrace2, self.packet = rt2.launches, pk.launches
         self.cbvh = ck.launches["closest"]
         self.cbvh_occluded = ck.launches["occluded"]
+        self.mb = mk.launches["closest"]
+        self.mb_occluded = mk.launches["occluded"]
         for k in Launches.totals:
             Launches.totals[k] += getattr(self, k)
         return False
+
+    def expect_mb(self, what, closest, occluded):
+        if (self.mb, self.mb_occluded) != (closest, occluded):
+            raise AssertionError(
+                f"{what}: {self.mb} mb and {self.mb_occluded} mb_occluded "
+                f"launches, expected {closest} and {occluded}")
 
     def expect_cbvh(self, what, closest, occluded):
         if (self.cbvh, self.cbvh_occluded) != (closest, occluded):
@@ -774,6 +817,251 @@ def hits_head(h, k):
     return type(h)(*(a[:k] for a in h))
 
 
+def mb_rays(rng, n, device, radius=6.0, jitter=0.3):
+    """Rays from a shell aimed at the origin, every seventh retired, and
+    one time a ray: uniform in [0, 1], every eleventh exactly 0 and
+    every thirteenth exactly 1."""
+    rays = shell_rays(rng, n, radius, jitter, device, retire_every=7)
+    tm = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    tm[::11] = 0.0
+    tm[::13] = 1.0
+    return rays, torch.from_numpy(tm).to(device)
+
+
+def compare_mb_plain(pm, rays, times, label):
+    """The MB kernel, both variants, main and counting builds, against
+    the plain version on the same card tensors: prim equal, t within 1
+    ulp (0 expected), occlusion equal, counters equal, no dropped push.
+    Returns (max abs err of t, ulps, plain ms closest, plain ms occluded,
+    rays whose occlusion differs)."""
+    t_k, p_k, _ = mk.mb_trace(pm, rays, times)
+    t_s, p_s, st_k = mk.mb_trace(pm, rays, times, stats=True)
+    o_k, _, _ = mk.mb_trace(pm, rays, times, occluded=True)
+    o_s, _, so_k = mk.mb_trace(pm, rays, times, occluded=True, stats=True)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    t_p, p_p, st_p = mk.mb_plain(pm, rays, times, stats=True)
+    ev[1].record()
+    o_p, _, so_p = mk.mb_plain(pm, rays, times, occluded=True, stats=True)
+    ev[2].record()
+    torch.cuda.synchronize()
+    plain_ms, plain_occ_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    ulps, err = check_close(label, t_k, t_p, p_k, p_p)
+    ulps_s, _ = check_close(label + " (counting build)", t_s, t_p, p_s, p_p)
+    if st_k != st_p or so_k != so_p:
+        raise AssertionError(f"{label}: counters differ: {st_k} vs {st_p}, "
+                             f"occlusion {so_k} vs {so_p}")
+    occ_err = float(max((o_k != o_p).sum(), (o_s != o_p).sum()))
+    if occ_err:
+        raise AssertionError(f"{label}: occlusion differs on {occ_err:.0f} "
+                             "rays")
+    if st_k["dropped_pushes"] or so_k["dropped_pushes"]:
+        raise AssertionError(f"{label}: dropped pushes")
+    # any hit <=> a closest hit, or a ray retired with tfar = -inf
+    tfar = rays.tfar.reshape(-1)
+    if not torch.equal(o_k, (p_k >= 0) | (tfar == -math.inf)):
+        raise AssertionError(f"{label}: occlusion disagrees with the hits")
+    n = t_k.numel()
+    log(f"  {label}: {n} rays, {int((p_k >= 0).sum())} hits; prim equal, "
+        f"t within {max(ulps, ulps_s)} ulp, occlusion equal, counters equal "
+        f"(per ray {st_k['node_visits'] / n:.2f} nodes, "
+        f"{st_k['slab_tests'] / n:.2f} slab tests, "
+        f"{st_k['knot_boxes'] / n:.2f} knot boxes, "
+        f"{st_k['tri_tests'] / n:.2f} triangle tests; occlusion "
+        f"{so_k['node_visits'] / n:.2f} nodes), 0 dropped; plain "
+        f"{plain_ms:.0f} + {plain_occ_ms:.0f} ms")
+    return err, max(ulps, ulps_s), plain_ms, plain_occ_ms, occ_err
+
+
+def mb_small_scenes(device_cfg=""):
+    """(label, scene) of the small motion-blur scenes: the JAX package's
+    test shapes (two to five timesteps, the last with temporal splits), a
+    QuadMeshMB, a SubdivMeshMB, and MB beside static triangles and beside
+    a compressed accel."""
+    rng = np.random.default_rng(0xB6)
+    v, idx = triangle_sphere((0.0, 0.0, 0.0), 2.0, 24)
+    kinked = [v] + [v + np.float32(k) for k in MB_KNOTS]
+    zigzag = [v + np.float32(o) for o in ((0, 0, 0), (0.5, 0, 0),
+                                          (0.5, 0.7, 0), (-0.2, 0.7, 0.3))]
+    cross_t, cross_idx = crossing_clusters(rng)
+    qv, quads = quad_sphere((0.0, 0.0, 0.0), 2.0, 16)
+    cv, cc, ci = subdiv_cube()
+    plane = ett.TriangleMesh(
+        np.array([[-10, -3.5, -10], [-10, -3.5, 10], [10, -3.5, -10],
+                  [10, -3.5, 10]], np.float32),
+        np.array([[0, 1, 2], [1, 3, 2]], np.int32))
+    cases = [
+        ("S=2 linear, triangle_sphere(24)", "",
+         [ett.TriangleMeshMB(v, v + np.float32([1.0, 0.5, 0.0]), idx)]),
+        ("S=3 kinked, triangle_sphere(24)", "",
+         [ett.TriangleMeshMB(indices=idx, timesteps=kinked)]),
+        ("S=4 zig-zag, triangle_sphere(24)", "",
+         [ett.TriangleMeshMB(indices=idx, timesteps=zigzag)]),
+        ("S=5 crossing clusters", "",
+         [ett.TriangleMeshMB(indices=cross_idx, timesteps=cross_t)]),
+        ("QuadMeshMB quad_sphere(16)", "",
+         [ett.QuadMeshMB(qv, qv + np.float32([0.0, 0.8, 0.4]), quads)]),
+        ("SubdivMeshMB subdiv_cube, level 3", "",
+         [ett.SubdivMeshMB(cv, cv * np.float32(1.3) + np.float32(
+             [0.3, 0.0, 0.0]), cc, ci)]),
+        ("S=3 kinked beside static triangles", "",
+         [plane, ett.TriangleMeshMB(indices=idx, timesteps=kinked)]),
+        ("S=3 kinked beside a compressed leaf accel",
+         ",subdiv_accel=bvh4.compressed.leaf",
+         [ett.SubdivMesh(cv * np.float32(0.5), cc, ci),
+          ett.TriangleMeshMB(indices=idx, timesteps=kinked)]),
+    ]
+    out = []
+    for label, cfg, geoms in cases:
+        sc = ett.Scene(ett.Device("ignore_config_files=1" + device_cfg + cfg))
+        for g in geoms:
+            sc.attach(g)
+        sc.set_levels(3, 3)
+        sc.commit()
+        out.append((label, sc))
+    return out
+
+
+def mb_small_scene_checks(device):
+    """Phase 3d: the MB kernel vs its plain version on the small scenes,
+    and each scene's `intersect` through the kernel. Returns (max abs err
+    of t, worst ulps, rays whose occlusion differs)."""
+    rng = np.random.default_rng(0x3D)
+    worst = worst_ulps = worst_occ = 0.0
+    for label, sc in mb_small_scenes():
+        cs = sc.committed
+        pm = cs.mb_kernel
+        if label.startswith("S=5") and not cs.mb.has_time_splits:
+            raise AssertionError(f"{label}: the build made no temporal split")
+        rays, times = mb_rays(rng, MB_SMALL_RAYS, device)
+        err, ulps, _, _, occ_err = compare_mb_plain(
+            pm, rays, times, f"{label} (S={pm.S}, {pm.num_prims} triangles, "
+            f"{pm.num_nodes} nodes, splits {cs.mb.has_time_splits})")
+        worst, worst_ulps = max(worst, err), max(worst_ulps, ulps)
+        worst_occ = max(worst_occ, occ_err)
+        with Launches() as lc:
+            h = sc.intersect(rays, time=times)
+            torch.cuda.synchronize()
+        lc.expect_mb(f"{label}: intersect", 1, 0)
+        if (cs.tris.num_prims and lc.packet != 1) or (
+                cs.compressed is not None and lc.cbvh != 1):
+            raise AssertionError(f"{label}: the other accels were not traced")
+        t_k, p_k, _ = mk.mb_trace(pm, rays, times)
+        if cs.tris.num_prims == 0 and cs.compressed is None:
+            if not (torch.equal(h.gprim, p_k)
+                    and torch.equal(h.t[h.valid], t_k[h.valid])):
+                raise AssertionError(f"{label}: the request and the kernel "
+                                     "disagree")
+        on_mb = h.valid & (h.gprim == p_k) & (h.t == t_k)
+        if int(on_mb.sum()) == 0 or (h.valid.sum() < (p_k >= 0).sum()):
+            raise AssertionError(f"{label}: the request lost MB hits")
+    return worst, worst_ulps, worst_occ
+
+
+def mb_bound(pm, st, occluded):
+    """Least time the card could take for what this run's rays needed of
+    the MB kernel: the larger of bytes / memory rate (rays and times in,
+    results out, the used part of every touched node row, and every
+    touched triangle's row and its prim_order entry once) and counted
+    float32 operations / the non-tensor fp32 peak."""
+    out_bytes = 1 if occluded else 8
+    node_bytes = 4 * (4 * pm.W + 6 * pm.W * pm.S)
+    tri_bytes = 4 * 9 * pm.S + 4
+    nbytes = (st["rays"] * (9 * 4 + out_bytes)
+              + st["nodes_touched"] * node_bytes
+              + st["prims_touched"] * tri_bytes)
+    flops = (st["slab_tests"] * MB_SLAB_FLOPS
+             + st["knot_boxes"] * MB_KNOT_FLOPS
+             + st["tri_tests"] * MB_TRI_FLOPS)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FP32_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def mb_times(label, pm, flat, times):
+    """Times, counters and bound of both MB variants on one batch."""
+    out = {}
+    n = flat.tnear.shape[0]
+    for mode, occl in (("closest", False), ("occluded", True)):
+        ms = time_ms(lambda: mk.mb_trace(pm, flat, times, occluded=occl))
+        st = mk.mb_trace(pm, flat, times, occluded=occl, stats=True)[2]
+        if st["dropped_pushes"] != 0:
+            raise AssertionError(f"{label}: dropped pushes")
+        bound = mb_bound(pm, st, occl)
+        out[mode] = {"ms": ms, "stats": st, "bound": bound}
+        log(f"  mb {mode}, {label}, {n} rays: {ms:.3f} ms, "
+            f"{n / ms / 1e3:.1f} Mray/s; per ray {st['node_visits'] / n:.2f} "
+            f"nodes, {st['slab_tests'] / n:.2f} slab tests, "
+            f"{st['knot_boxes'] / n:.2f} knot boxes, "
+            f"{st['tri_tests'] / n:.2f} triangle tests; "
+            f"{st['nodes_touched']} of {pm.num_nodes} node rows and "
+            f"{st['prims_touched']} of {pm.num_prims} triangle rows touched; "
+            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"(bytes {bound['bytes'] / 1e6:.1f} MB -> "
+            f"{bound['bytes_ms']:.4f} ms, operations "
+            f"{bound['flops'] / 1e9:.2f} GFLOP -> {bound['flops_ms']:.4f} ms)"
+            f": {100 * bound['bound_ms'] / ms:.1f} % of the kernel's time")
+    return out
+
+
+def check_static_knot(label, h, t_s, p_s):
+    """An MB request at a knot's time against the static scene of that
+    knot through the packet kernel: valid equal, t within 1e-6 relative,
+    prim equal except where both give the same t within that tolerance
+    (ties, counted)."""
+    valid = p_s >= 0
+    if not torch.equal(h.valid, valid):
+        raise AssertionError(f"{label}: valid masks differ on "
+                             f"{int((h.valid != valid).sum())} rays")
+    rel = ((h.t - t_s).abs() / t_s.abs())[valid]
+    worst = float(rel.max()) if valid.any() else 0.0
+    ties = int((h.gprim != p_s)[valid].sum())
+    if not worst <= 1e-6:
+        raise AssertionError(f"{label}: t differs by {worst:g} relative")
+    log(f"  {label}: same valid mask ({int(valid.sum())} hits), t within "
+        f"{worst:g} relative, prim differs on {ties} ties")
+    return ties
+
+
+def mb_brute_check(label, accel, flat: Rays, times, valid, t):
+    """BRUTE_RAYS rays (evenly strided) against every triangle of the MB
+    accel lerped at each ray's time: same valid mask, t within 1e-5
+    relative."""
+    n = flat.tnear.shape[0]
+    sel = torch.linspace(0, n - 1, BRUTE_RAYS, device=t.device).long()
+    S = accel.num_timesteps
+    best = torch.full((BRUTE_RAYS,), math.inf, device=t.device)
+    hit = torch.zeros(BRUTE_RAYS, dtype=torch.bool, device=t.device)
+    for s in range(0, BRUTE_RAYS, 8):
+        r = sel[s:s + 8]
+        x = times[r].clamp(0.0, 1.0) * float(S - 1)
+        seg = x.to(torch.int32).clamp(0, S - 2).long()
+        w = (x - seg.to(torch.float32))[:, None, None]
+        vs = [vt[seg] * (1.0 - w) + vt[seg + 1] * w
+              for vt in (accel.v0_ts, accel.v1_ts, accel.v2_ts)]
+        ok, tt, _u, _v, _ng = intersect_triangle(
+            flat.org[r][:, None, :], flat.dir[r][:, None, :],
+            flat.tnear[r][:, None], flat.tfar[r][:, None], *vs)
+        tt = torch.where(ok, tt, torch.full_like(tt, math.inf)).amin(dim=1)
+        hit[s:s + 8] = torch.isfinite(tt)
+        best[s:s + 8] = tt
+    k_valid, k_t = valid.reshape(-1)[sel], t.reshape(-1)[sel]
+    if not torch.equal(hit, k_valid):
+        raise AssertionError(f"{label}: brute force: valid masks differ on "
+                             f"{int((hit != k_valid).sum())} rays")
+    rel = (float(((best - k_t).abs() / k_t.abs())[k_valid].max())
+           if k_valid.any() else 0.0)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{label}: brute force: t differs by {rel:g} "
+                             "relative")
+    log(f"  {label}: brute force over all lerped triangles, {BRUTE_RAYS} "
+        f"rays at their own times: same valid mask ({int(hit.sum())} hits), "
+        f"t within {rel:g} relative")
+
+
 def grid_triangles(tiles):
     """The two triangles of every cell of a grid-mode accel, with the
     kernel's diagonal and vertex order, as a triangle mesh."""
@@ -812,14 +1100,14 @@ def main() -> int:
     # a build directory left by another machine is deleted, not trusted
     shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME, ck.KERNEL_NAME],
-                         verbose=True)
+    nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME, ck.KERNEL_NAME,
+                          mk.KERNEL_NAME], verbose=True)
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     if not sah_native.native_available():
         raise AssertionError("the native SAH builder did not build")
     gxx_s = time.perf_counter() - t0
-    log(f"[2] build: nvcc rowtrace2.cu, packet.cu and cbvh.cu together "
+    log(f"[2] build: nvcc rowtrace2.cu, packet.cu, cbvh.cu and mb.cu together "
         f"{nvcc_s:.1f} s, "
         f"g++ sah_builder.cpp {gxx_s:.1f} s")
 
@@ -831,6 +1119,9 @@ def main() -> int:
     pk_small_err = packet_small_scene_checks(dev.device)
     log("[3c] compressed kernels vs plain versions on small scenes")
     cb_small_err, cbo_small_err = cbvh_small_scene_checks(dev.device)
+    log("[3d] motion-blur kernel vs plain version on small scenes")
+    mb_small_err, mb_small_ulps, mbo_small_err = mb_small_scene_checks(
+        dev.device)
     if args.quick:
         log("--quick: stopping before the full-size phases")
         return 0
@@ -1402,6 +1693,147 @@ def main() -> int:
     log(f"  plain versions, 2^{B4_PLAIN_LOG2} rays: closest "
         f"{cb_plain_ms:.0f} ms, occluded {cbo_plain_ms:.0f} ms")
 
+    # -- 13. the motion-blur path at full size ------------------------------
+    log(f"[13] motion-blur path: triangle_sphere({SCENE_RES}) as one "
+        f"TriangleMeshMB of {1 + len(MB_KNOTS)} timesteps (kinked motion)")
+    knots = [verts] + [verts + np.float32(k) for k in MB_KNOTS]
+    mbs = ett.Scene(dev)
+    mbs.attach(ett.TriangleMeshMB(indices=idx, timesteps=knots))
+    prof.samples.clear()
+    t0 = time.perf_counter()
+    mcs = mbs.commit()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    pm = mcs.mb_kernel
+    log(f"  commit {commit_s:.1f} s: " + ", ".join(
+        f"{k} {prof.stats(k)['avg']:.2f} s" for k in prof.samples))
+    split = ("fired: root children gated to "
+             + str([(float(a), float(b)) for a, b in zip(
+                 mcs.mb.time_lo[0].tolist(), mcs.mb.time_hi[0].tolist())])
+             if mcs.mb.has_time_splits else "did not fire")
+    log(f"  {pm.num_prims} triangles at {pm.S} knots; BVH{pm.W} of "
+        f"{pm.num_nodes} nodes in {pm.depth} levels; the temporal split "
+        f"{split}; node rows of {pm.node_rows.shape[1]} floats "
+        f"({4 * pm.W + 6 * pm.W * pm.S} used), triangle rows of "
+        f"{pm.tri_rows.shape[1]} floats ({9 * pm.S} used); packed "
+        f"{pm.device_bytes / 1e6:.1f} MB, the committed scene "
+        f"{_scene_bytes(mcs) / 1e6:.1f} MB on the card")
+    if pm.num_prims != 998284 or mcs.tris.num_prims != 0:
+        raise AssertionError("main-mb is not 998,284 MB triangles alone")
+    gen = torch.Generator(device=dev.device)
+    gen.manual_seed(MB_TIME_SEED)
+    times = torch.rand(n, generator=gen, device=dev.device)
+    ftimes = torch.rand((FRAME[1], FRAME[0]), generator=gen,
+                        device=dev.device)
+    with Launches() as lc:
+        h_mb = mbs.intersect(rays, time=times)
+        h_mbf = mbs.intersect(frame, time=ftimes, coherent=True)
+        occ_mb = mk.occluded_mb_kernel(pm, rays, times)
+        torch.cuda.synchronize()
+    lc.expect("motion-blur requests", 0, 0)
+    lc.expect_mb("2 intersect requests + 1 occluded_mb_kernel", 2, 1)
+    check_hits("motion blur, incoherent", h_mb, (n,))
+    check_hits("motion blur, frame", h_mbf, (FRAME[1], FRAME[0]))
+    if not torch.equal(occ_mb, h_mb.valid):
+        raise AssertionError("occluded_mb_kernel disagrees with intersect's "
+                             "valid mask")
+    frac = float(h_mb.valid.float().mean())
+    frac_fr = float(h_mbf.valid.float().mean())
+    if not (0.15 < frac < 0.8 and 0.05 < frac_fr < 0.9):
+        raise AssertionError(f"motion blur: hit fractions {frac:.3f}, "
+                             f"{frac_fr:.3f}")
+    log(f"  2^{LOG2_RAYS} rays at random times: hit fraction {frac:.4f}, "
+        f"occluded == valid; {FRAME[0]}x{FRAME[1]} frame: {frac_fr:.4f}")
+    try:
+        mbs.occluded(rays)
+    except ett.RaytracerError as e:
+        log(f"  scene.occluded over motion blur raises: {e}")
+    else:
+        raise AssertionError("scene.occluded over motion blur did not raise")
+
+    # -- 14. the motion-blur path: correctness at full size -----------------
+    log("[14] motion-blur path: correctness at full size")
+    nmb = 1 << MB_PLAIN_LOG2
+    head_mb = Rays(*(a[:nmb].contiguous() for a in rays))
+    (mb_full_err, mb_full_ulps, mb_plain_ms, mbo_plain_ms,
+     mbo_full_err) = compare_mb_plain(
+        pm, head_mb, times[:nmb],
+        f"main-mb, the first 2^{MB_PLAIN_LOG2} rays of the main path")
+    _t, p_head, _ = mk.mb_trace(pm, head_mb, times[:nmb])
+    if not torch.equal(h_mb.gprim[:nmb], p_head):
+        raise AssertionError("the request and the kernel's wrapper disagree")
+    with Launches() as lc:
+        h_t0 = mbs.intersect(rays, time=0.0)
+        h_t1 = mbs.intersect(rays, time=1.0)
+        torch.cuda.synchronize()
+    lc.expect_mb("requests at time 0 and 1", 2, 0)
+    last = ett.Scene(ett.Device(
+        "ignore_config_files=1,tri_accel=bvh4.triangle4.packet"))
+    last.attach(ett.TriangleMesh(knots[-1], idx))
+    last.commit()
+    mb_ties = [
+        check_static_knot("time 0 vs the static first knot (packet kernel)",
+                          h_t0, *pk.intersect_packet_kernel_raw(cs.packet,
+                                                                rays)),
+        check_static_knot("time 1 vs the static last knot (packet kernel)",
+                          h_t1, *pk.intersect_packet_kernel_raw(
+                              last.committed.packet, rays))]
+    mb_brute_check("motion blur, random times", mcs.mb, rays, times,
+                   h_mb.valid, h_mb.t)
+    del last, h_t0, h_t1
+
+    # -- 15. the motion_blur_geometry tutorial ---------------------------
+    log("[15] motion_blur_geometry tutorial")
+    mapp = mb_tutorial.make_app()
+    with Launches() as lc:
+        rc = mapp.run(["--benchmark", "1", "3",
+                       "-rtcore", "ignore_config_files=1"])
+        torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"the tutorial returned {rc}")
+    lc.expect("tutorial: 5 frames", 0, 5)
+    lc.expect_mb("tutorial: 5 frames", 5, 0)
+    small_size = (64, 48)
+    ttimes = mb_tutorial.frame_times(0, *small_size, "cpu")
+    imgs = {}
+    for where, dv in (("card", ett.Device("ignore_config_files=1")),
+                      ("cpu", ett.Device("ignore_config_files=1",
+                                         device="cpu"))):
+        st = mb_tutorial.build_scene(dv)
+        scs_ = st["cscene"]
+        cam = mapp.camera.ispc_camera(*small_size, device=scs_.device)
+        img = mb_tutorial.render(scs_, st["colors"], ttimes.to(scs_.device),
+                                 *cam, width=small_size[0],
+                                 height=small_size[1])
+        imgs[where] = img.cpu().numpy()
+    diff = np.abs(imgs["card"] - imgs["cpu"]).max(-1)
+    bad = float((diff > 1.5 / 255).mean())
+    lit = float((imgs["card"].max(-1) > 0).mean())
+    if not (np.isfinite(imgs["card"]).all() and bad <= 0.005 and lit > 0.3):
+        raise AssertionError(f"tutorial: {bad:.4%} of the pixels differ from "
+                             f"the CPU render, {lit:.2%} lit")
+    log(f"  tutorial at {mapp.default_size[0]}x{mapp.default_size[1]} ran; "
+        f"{small_size[0]}x{small_size[1]} frame at the same times: "
+        f"{bad:.4%} of the pixels differ from this package's CPU render by "
+        f"more than 1.5/255 (budget 0.5 %), {lit:.2%} of the pixels lit")
+
+    # -- 16. times of the motion-blur kernel -----------------------------
+    log("[16] motion-blur kernel: times (CUDA events, median of 5 after a "
+        "warm-up), counters and bounds")
+    mb_inc = mb_times(f"main-mb, 2^{LOG2_RAYS} incoherent", pm, rays, times)
+    mb_times(f"main-mb, {FRAME[0]}x{FRAME[1]} coherent frame", pm,
+             frame_flat, ftimes.reshape(-1))
+    for label, fn in (
+            ("intersect request, motion-blur path, 2^21 rays",
+             lambda: mbs.intersect(rays, time=times)),
+            ("intersect request, motion-blur path, coherent frame",
+             lambda: mbs.intersect(frame, time=ftimes, coherent=True))):
+        log(f"  {label}: {time_ms(fn):.3f} ms")
+    log(f"  plain versions, 2^{MB_PLAIN_LOG2} rays: closest "
+        f"{mb_plain_ms:.0f} ms, occluded {mbo_plain_ms:.0f} ms; kernel vs "
+        f"plain within {max(mb_small_ulps, mb_full_ulps)} ulp; "
+        f"{sum(mb_ties)} ties against the static knots")
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to its first
     # 2^18 rays. packet: ms and bound_ms belong to the closest-hit launch
@@ -1409,7 +1841,10 @@ def main() -> int:
     # cbvh and cbvh_occluded: ms and bound_ms belong to the 2^21 incoherent
     # rays on the main-c scene (`pc.num_tiles` tiles), plain_ms to their
     # first 2^16 rays; cbvh_occluded's max_abs_err counts the rays whose
-    # answer differs from the plain version's
+    # answer differs from the plain version's. mb and mb_occluded: ms and
+    # bound_ms belong to the 2^21 incoherent rays at random times on
+    # main-mb, plain_ms to their first 2^16 rays; mb_occluded's
+    # max_abs_err counts the rays whose answer differs
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
@@ -1451,6 +1886,28 @@ def main() -> int:
         "plain_rays": nb4,
         "bound_ms": cb_inc["occluded"]["bound"]["bound_ms"],
         "bound_by": cb_inc["occluded"]["bound"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mb", "route": "cuda",
+        "source": "embree_tpu_torch/csrc/mb.cu",
+        "replaces": "embree_tpu/traverse/pallas_mb.py:120",
+        "launches": Launches.totals["mb"],
+        "max_abs_err": max(mb_small_err, mb_full_err),
+        "ms": mb_inc["closest"]["ms"], "plain_ms": mb_plain_ms,
+        "plain_rays": nmb,
+        "bound_ms": mb_inc["closest"]["bound"]["bound_ms"],
+        "bound_by": mb_inc["closest"]["bound"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mb_occluded", "route": "cuda",
+        "source": "embree_tpu_torch/csrc/mb.cu",
+        "replaces": "embree_tpu/traverse/pallas_mb.py:120",
+        "launches": Launches.totals["mb_occluded"],
+        "max_abs_err": max(mbo_small_err, mbo_full_err),
+        "ms": mb_inc["occluded"]["ms"], "plain_ms": mbo_plain_ms,
+        "plain_rays": nmb,
+        "bound_ms": mb_inc["occluded"]["bound"]["bound_ms"],
+        "bound_by": mb_inc["occluded"]["bound"]["bound_by"],
         "library_ms": None,
     }]}
     for k in kernels["kernels"]:

@@ -9,9 +9,12 @@ packing, treelet scene for large meshes, the compressed per-tile
 quadtree for displaced Catmull-Clark surfaces); closest-hit / any-hit
 queries through the per-ray treelet traversal (large incoherent
 batches), the BVH packet kernel (everything else on triangles) and the
-compressed-tile kernels, with ray masks and intersection filters; the
-differentiable hit (`diff.hit`); the `triangle_geometry` and
-`displacement_geometry` tutorials (`render.tutorials`).
+compressed-tile kernels, with ray masks and intersection filters;
+motion blur: triangle, quad and subdivision meshes with N >= 2 vertex
+timesteps, closest hit at a time a ray through the MB kernel; the
+differentiable hit (`diff.hit`); the `triangle_geometry`,
+`displacement_geometry` and `motion_blur_geometry` tutorials
+(`render.tutorials`).
 
 Quick start::
 
@@ -25,7 +28,8 @@ Quick start::
 from .core.config import State
 from .core.device import Device, Error, RaytracerError
 from .core.rayhit import Hits, INVALID_ID, Rays, make_rays, miss_hits
-from .scene.geometry import Geometry, QuadMesh, SubdivMesh, TriangleMesh
+from .scene.geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
+                             SubdivMeshMB, TriangleMesh, TriangleMeshMB)
 from .scene.scene import (BuildQuality, CommittedScene, Scene, scene_intersect,
                           scene_occluded)
 
@@ -35,6 +39,7 @@ __all__ = [
     "State", "Device", "Error", "RaytracerError",
     "Rays", "Hits", "make_rays", "miss_hits", "INVALID_ID",
     "Geometry", "TriangleMesh", "QuadMesh", "SubdivMesh",
+    "TriangleMeshMB", "QuadMeshMB", "SubdivMeshMB",
     "Scene", "BuildQuality", "CommittedScene",
     "scene_intersect", "scene_occluded",
 ]

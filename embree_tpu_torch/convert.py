@@ -5,7 +5,8 @@
 the JAX side; nothing here sees a JAX object) and returns this
 package's `CommittedScene` on the given device;
 `compressed_accel_from_reference` does the same for a compressed
-subdivision accel, so that both packages trace the same tiles.
+subdivision accel, so that both packages trace the same tiles, and
+`mb_accel_from_reference` for a motion-blur accel and its packed rows.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from .build.treelets import BLOCK_ROWS, TreeletScene
 from .scene.prims import TrianglePrims
 from .scene.scene import CommittedScene
 from .traverse.cbvh import CompressedAccel
+from .traverse.mb import MBAccel
+from .traverse.mb_kernel import PackedMB, pack_rows, packed_from_rows
 from .traverse.packet_kernel import PackedScene, tree_depth
 
 
@@ -137,3 +140,42 @@ def compressed_accel_from_reference(arrays: dict, device) -> CompressedAccel:
                             mode=str(arrays["tiles.mode"]),
                             flavor=str(arrays["tiles.flavor"]))
     return CompressedAccel(top=top, tiles=tiles)
+
+
+def mb_accel_from_reference(arrays: dict, device):
+    """Build an MBAccel and its PackedMB from the JAX package's MBAccel.
+
+    `arrays` holds numpy arrays under the field names: `bvh.lower`,
+    `bvh.upper` (M, W, 3) f32, `bvh.child`, `bvh.count` (M, W) i32,
+    `bvh.prim_order` (P,) i32; `lower_ts`, `upper_ts` (S, M, W, 3) f32;
+    `v0_ts`, `v1_ts`, `v2_ts` (S, T, 3) f32; `geom_id`, `prim_id`,
+    `uv_flip` (T,) i32; `time_lo`, `time_hi` (M, W) f32, absent or None
+    for an accel without temporal splits. The rows are packed from these
+    fields, as the JAX package packs them."""
+    device = torch.device(device)
+    f32, i32 = np.float32, np.int32
+    arrs = {k: (None if arrays.get(k) is None else np.asarray(arrays[k]))
+            for k in ("bvh.lower", "bvh.upper", "bvh.child", "bvh.count",
+                      "bvh.prim_order", "lower_ts", "upper_ts", "v0_ts",
+                      "v1_ts", "v2_ts", "geom_id", "prim_id", "uv_flip",
+                      "time_lo", "time_hi")}
+    S, M, W, _ = arrs["lower_ts"].shape
+    if arrs["bvh.child"].shape != (M, W) or arrs["v0_ts"].shape[0] != S:
+        raise ValueError("bvh.*, *_ts describe different accels")
+    bvh = BVH(lower=_tensor(arrs["bvh.lower"], f32, device),
+              upper=_tensor(arrs["bvh.upper"], f32, device),
+              child=_tensor(arrs["bvh.child"], i32, device),
+              count=_tensor(arrs["bvh.count"], i32, device),
+              prim_order=_tensor(arrs["bvh.prim_order"], i32, device))
+    opt = {k: None if arrs[k] is None else _tensor(arrs[k], f32, device)
+           for k in ("time_lo", "time_hi")}
+    accel = MBAccel(
+        bvh=bvh,
+        **{k: _tensor(arrs[k], f32, device)
+           for k in ("lower_ts", "upper_ts", "v0_ts", "v1_ts", "v2_ts")},
+        **{k: _tensor(arrs[k], i32, device)
+           for k in ("geom_id", "prim_id", "uv_flip")}, **opt)
+    packed: PackedMB = packed_from_rows(pack_rows(arrs), S, W,
+                                        arrs["bvh.child"],
+                                        arrs["bvh.count"], device)
+    return accel, packed

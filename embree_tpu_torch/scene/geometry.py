@@ -3,7 +3,8 @@
 Counterpart of embree_tpu/scene/geometry.py (reference
 kernels/common/geometry.h + scene_*_mesh.*): buffer binding happens on
 the host; Scene.commit() flattens everything into immutable device
-tensors. Triangle, quad and subdivision meshes so far.
+tensors. Triangle, quad and subdivision meshes so far, each also with
+N >= 2 vertex timesteps (motion blur).
 """
 from __future__ import annotations
 
@@ -96,6 +97,92 @@ class SubdivMesh(Geometry):
         self.holes = holes
         self.displacement = displacement
         self.tessellation_rate = tessellation_rate
+
+    @property
+    def num_prims(self) -> int:
+        return int(self.face_counts.shape[0])
+
+
+def _timesteps(vertices_begin, vertices_end, timesteps):
+    """The vertex timesteps of an MB geometry: `timesteps` (N >= 2) or
+    the two-argument linear form."""
+    if timesteps is None:
+        timesteps = [vertices_begin, vertices_end]
+    out = [np.asarray(v, np.float32) for v in timesteps]
+    assert len(out) >= 2
+    return out
+
+
+class TriangleMeshMB(Geometry):
+    """Motion-blur triangle mesh with N >= 2 vertex timesteps
+    (RTC_GEOMETRY_TYPE_TRIANGLE with rtcSetGeometryTimeStepCount;
+    multi-segment per bvh_builder_msmblur.h). The 2-argument form keeps
+    the linear-motion API; pass `timesteps=[v_t0, v_t1, ...]` for
+    multi-segment motion."""
+
+    def __init__(self, vertices_begin=None, vertices_end=None, indices=None,
+                 timesteps=None):
+        super().__init__()
+        self.vertex_timesteps = _timesteps(vertices_begin, vertices_end,
+                                           timesteps)
+        self.indices = np.asarray(indices, np.int32)
+
+    @property
+    def vertices_begin(self):
+        return self.vertex_timesteps[0]
+
+    @property
+    def vertices_end(self):
+        return self.vertex_timesteps[-1]
+
+    @property
+    def num_prims(self) -> int:
+        return int(self.indices.shape[0])
+
+
+class QuadMeshMB(Geometry):
+    """Motion-blur quad mesh (RTC_GEOMETRY_TYPE_QUAD with N timesteps).
+    Quads split into the same two triangles as QuadMesh at every
+    timestep, so the lerped leaves stay watertight across the shared
+    diagonal."""
+
+    def __init__(self, vertices_begin=None, vertices_end=None, indices=None,
+                 timesteps=None):
+        super().__init__()
+        self.vertex_timesteps = _timesteps(vertices_begin, vertices_end,
+                                           timesteps)
+        self.indices = np.asarray(indices, np.int32)   # (Q, 4)
+
+    @property
+    def num_prims(self) -> int:
+        return int(self.indices.shape[0])
+
+
+class SubdivMeshMB(Geometry):
+    """Motion-blur Catmull-Clark subdivision mesh: N >= 2 cage-vertex
+    timesteps over one topology (verify.cpp:4367-4416 `_subdiv ... MB`).
+    Commit tessellates every timestep with the shared refinement plan;
+    the triangle soups feed the multi-segment MB accel."""
+
+    def __init__(self, vertices_begin=None, vertices_end=None,
+                 face_counts=None, face_indices=None, timesteps=None,
+                 edge_creases=None, edge_crease_weights=None,
+                 vertex_creases=None, vertex_crease_weights=None,
+                 displacement=None):
+        super().__init__()
+        self.vertex_timesteps = _timesteps(vertices_begin, vertices_end,
+                                           timesteps)
+        self.face_counts = np.asarray(face_counts, np.int64)
+        self.face_indices = np.asarray(face_indices, np.int64)
+        self.edge_creases = edge_creases
+        self.edge_crease_weights = edge_crease_weights
+        self.vertex_creases = vertex_creases
+        self.vertex_crease_weights = vertex_crease_weights
+        self.displacement = displacement
+
+    @property
+    def vertices(self):
+        return self.vertex_timesteps[0]
 
     @property
     def num_prims(self) -> int:

@@ -1,10 +1,11 @@
 """Scene: geometry container + commit orchestration.
 
 Counterpart of embree_tpu/scene/scene.py for triangle, quad and
-subdivision meshes. `Scene` is the mutable host container
-(attach/detach); `commit()` flattens the enabled triangle and quad
-meshes into one triangle soup, builds on the host and publishes an
-immutable `CommittedScene` of tensors on the Device's device:
+subdivision meshes, static and with motion blur. `Scene` is the mutable
+host container (attach/detach); `commit()` flattens the enabled
+triangle and quad meshes into one triangle soup, builds on the host and
+publishes an immutable `CommittedScene` of tensors on the Device's
+device:
 
   * always: the binned-SAH wide BVH (build/sah.py; BVH4, or BVH8 when
     `tri_accel` starts with "bvh8") and its packed form for the packet
@@ -19,7 +20,12 @@ immutable `CommittedScene` of tensors on the Device's device:
     meshes go into one compressed accel instead (scene/subdiv_accel.py:
     one quantized quadtree per tile under a BVH4), packed for the
     compressed kernels (traverse/cbvh_kernel.py) unless the mode is
-    `full` or `compressed_node` is not `com`.
+    `full` or `compressed_node` is not `com`;
+  * `TriangleMeshMB`, `QuadMeshMB` and `SubdivMeshMB` (N >= 2 vertex
+    timesteps) go into one motion-blur accel (`_build_mb`: a common knot
+    grid, one SAH topology refit at every knot, a temporal-split
+    competition that may put time-gated subtrees under an MB4D root),
+    packed for the MB kernel (traverse/mb_kernel.py).
 
 Dispatch of `scene_intersect` / `scene_occluded`, the JAX package's:
 the per-ray treelet traversal (traverse/rowtrace2.py) serves a batch
@@ -34,28 +40,33 @@ folds it in after the triangles, as the JAX package does: the
 compressed walk starts from the triangles' t and wins where it finds a
 tile; occlusion is the OR of both. The packed accel goes through the
 compressed kernels, an unpacked one (`full`, `non`, `mid`) through the
-torch-op traversal (traverse/cbvh.py). Ray masks act on triangles only.
+torch-op traversal (traverse/cbvh.py). The motion-blur accel folds in
+last, at each ray's time (0 when `time` is None), starting from the t
+that the other accels left. Ray masks act on triangles only.
 The JAX package stream-sorts
 large incoherent batches (traverse/stream.py) before its packet kernel;
 on this card the sort costs more than it saves (PERF.md), so no path
 here sorts.
 
-Arguments that need a module which is not ported yet (`time`,
-BuildQuality.LOW / REFIT, per-edge tessellation levels, other geometry
-types) raise
-`RaytracerError(INVALID_OPERATION, "not ported yet: ...")`.
+What needs a module which is not ported yet raises
+`RaytracerError(INVALID_OPERATION, "not ported yet: ...")`:
+BuildQuality.LOW / REFIT, per-edge tessellation levels, occlusion over
+motion-blur geometry, and the geometry types other than the six above
+(curves and hair, motion-blur curves, instances, user geometry).
 """
 from __future__ import annotations
 
 import enum
 import math
 import time
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..build.bvh import BVH
+from ..build.bvh import BVH, sah_cost
+from ..build.refit import plan_refit, refit
 from ..build.sah import BuildSettings, build_sah
 from ..build.treelets import TreeletScene, build_treelet_scene, choose_fan
 from ..core.device import Device, Error, RaytracerError
@@ -68,11 +79,14 @@ from ..traverse.cbvh_kernel import (PackedCompressed,
                                     intersect_compressed_kernel,
                                     occluded_compressed_kernel,
                                     pack_compressed)
+from ..traverse.mb import MBAccel, ray_times
+from ..traverse.mb_kernel import PackedMB, intersect_mb_kernel, pack_mb
 from ..traverse.packet import _finalize_hits
 from ..traverse.packet_kernel import (PackedScene, intersect_packet_kernel_raw,
                                       occluded_packet_kernel, pack_scene)
 from ..traverse.rowtrace2 import intersect_rowtrace2
-from .geometry import Geometry, QuadMesh, SubdivMesh, TriangleMesh
+from .geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
+                       SubdivMeshMB, TriangleMesh, TriangleMeshMB)
 from .subdiv_accel import build_compressed_accel
 from .prims import TrianglePrims, empty_triangle_prims, prim_bounds_np
 
@@ -122,6 +136,8 @@ class CommittedScene(NamedTuple):
     tri_patch_uv: Optional[torch.Tensor] = None
     compressed: Optional[CompressedAccel] = None   # fork's subdiv modes
     compressed_kernel: Optional[PackedCompressed] = None  # its packed form
+    mb: Optional[MBAccel] = None              # motion-blur accel
+    mb_kernel: Optional[PackedMB] = None      # its packed form
 
     @property
     def device(self) -> torch.device:
@@ -136,6 +152,23 @@ def _as_np_f32(a):
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, np.float32)
+
+
+def _tri_soup(v, idx):
+    """(v0, v1, v2, prim) of a triangle mesh's vertices `v`."""
+    return (v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]],
+            np.arange(idx.shape[0], dtype=np.int32))
+
+
+def _quad_soup(v, q):
+    """(v0, v1, v2, prim, uv_flip) of a quad mesh's vertices `v`: tri
+    A = (v0, v1, v3), tri B = (v2, v3, v1) (quadv.h), all A first."""
+    n = q.shape[0]
+    return (np.concatenate([v[q[:, 0]], v[q[:, 2]]]),
+            np.concatenate([v[q[:, 1]], v[q[:, 3]]]),
+            np.concatenate([v[q[:, 3]], v[q[:, 1]]]),
+            np.concatenate([np.arange(n, dtype=np.int32)] * 2),
+            np.concatenate([np.zeros(n, np.int32), np.ones(n, np.int32)]))
 
 
 class Scene:
@@ -205,35 +238,24 @@ class Scene:
         tri_uv3 = []          # (n, 3, 2) patch-uv corners per triangle
         any_patch_uv = False  # an eagerly tessellated SubdivMesh is present
         subdiv_compressed = []
+        mb_geoms = []
         with profile_phase("scene.flatten"):
             for gid, g in sorted(self.geometries.items()):
                 if not g.enabled:
                     continue
-                if isinstance(g, TriangleMesh):
-                    v = _as_np_f32(g.vertices)
-                    idx = g.indices
-                    tri_v0.append(v[idx[:, 0]])
-                    tri_v1.append(v[idx[:, 1]])
-                    tri_v2.append(v[idx[:, 2]])
-                    n = idx.shape[0]
+                if isinstance(g, (TriangleMesh, QuadMesh)):
+                    soup = (_tri_soup if isinstance(g, TriangleMesh)
+                            else _quad_soup)(_as_np_f32(g.vertices),
+                                             g.indices)
+                    n = soup[0].shape[0]
+                    tri_v0.append(soup[0])
+                    tri_v1.append(soup[1])
+                    tri_v2.append(soup[2])
                     tri_geom.append(np.full(n, gid, np.int32))
-                    tri_prim.append(np.arange(n, dtype=np.int32))
-                    tri_flip.append(np.zeros(n, np.int32))
+                    tri_prim.append(soup[3])
+                    tri_flip.append(soup[4] if len(soup) > 4
+                                    else np.zeros(n, np.int32))
                     tri_uv3.append(_ident_uv3(n))
-                elif isinstance(g, QuadMesh):
-                    v = _as_np_f32(g.vertices)
-                    idx = g.indices
-                    n = idx.shape[0]
-                    # tri A = (v0, v1, v3), tri B = (v2, v3, v1)  (quadv.h)
-                    tri_v0 += [v[idx[:, 0]], v[idx[:, 2]]]
-                    tri_v1 += [v[idx[:, 1]], v[idx[:, 3]]]
-                    tri_v2 += [v[idx[:, 3]], v[idx[:, 1]]]
-                    tri_geom.append(np.full(2 * n, gid, np.int32))
-                    tri_prim.append(
-                        np.concatenate([np.arange(n, dtype=np.int32)] * 2))
-                    tri_flip.append(np.concatenate(
-                        [np.zeros(n, np.int32), np.ones(n, np.int32)]))
-                    tri_uv3.append(_ident_uv3(2 * n))
                 elif isinstance(g, SubdivMesh):
                     if g.edge_levels is not None:
                         raise _not_ported("per-edge tessellation levels")
@@ -253,6 +275,9 @@ class Scene:
                     tri_flip.append(np.zeros(v0.shape[0], np.int32))
                     tri_uv3.append(uv3)
                     any_patch_uv = True
+                elif isinstance(g, (TriangleMeshMB, QuadMeshMB,
+                                    SubdivMeshMB)):
+                    mb_geoms.append((gid, g))
                 else:
                     raise _not_ported(f"geometry type {type(g).__name__}")
 
@@ -329,6 +354,21 @@ class Scene:
                 hi_all = np.maximum(hi_all, chi)
             else:
                 lo_all, hi_all = clo, chi
+        # motion-blur accel (per-knot refit bounds; traverse/mb.py)
+        mb = mb_kernel = None
+        if mb_geoms:
+            mb = self._build_mb(mb_geoms, dev)
+            with profile_phase("scene.pack_mb"):
+                mb_kernel = pack_mb(mb)
+            # the vertices at every knot bound the whole motion
+            knots = torch.stack([mb.v0_ts, mb.v1_ts, mb.v2_ts])
+            mlo = knots.amin(dim=(0, 1, 2)).cpu().numpy()
+            mhi = knots.amax(dim=(0, 1, 2)).cpu().numpy()
+            if nprims or subdiv_compressed:
+                lo_all = np.minimum(lo_all, mlo)
+                hi_all = np.maximum(hi_all, mhi)
+            else:
+                lo_all, hi_all = mlo, mhi
         tri_patch_uv = None
         with profile_phase("scene.upload"):
             bvh = bvh_np.to_device(dev)
@@ -352,7 +392,7 @@ class Scene:
             world_upper=torch.from_numpy(hi_all.astype(np.float32)).to(dev),
             backface_cull=bool(self.device.state.backface_culling),
             tri_patch_uv=tri_patch_uv, compressed=compressed,
-            compressed_kernel=compressed_kernel)
+            compressed_kernel=compressed_kernel, mb=mb, mb_kernel=mb_kernel)
         self.device.memory_monitor(_scene_bytes(self.committed), True)
         self.build_time_s = time.perf_counter() - t0
         self._progress(1.0)
@@ -360,6 +400,189 @@ class Scene:
             self.print_statistics()
             global_profiler().print("  profile ")
         return self.committed
+
+    def _mb_timestep_soups(self, g):
+        """Per-timestep (v0, v1, v2, prim[, flip]) triangle soups of one
+        MB geometry (triangle MB directly; quad MB splits each quad into
+        the standard diagonal pair; subdiv MB tessellates every cage
+        timestep through the shared plan)."""
+        if isinstance(g, (TriangleMeshMB, QuadMeshMB)):
+            soup = _tri_soup if isinstance(g, TriangleMeshMB) else _quad_soup
+            return [soup(v, g.indices) for v in g.vertex_timesteps]
+        # SubdivMeshMB: tessellate each timestep (same topology and plan)
+        out = []
+        for v in g.vertex_timesteps:
+            cage = SimpleNamespace(
+                vertices=v, face_counts=g.face_counts,
+                face_indices=g.face_indices, edge_creases=g.edge_creases,
+                edge_crease_weights=g.edge_crease_weights,
+                vertex_creases=g.vertex_creases,
+                vertex_crease_weights=g.vertex_crease_weights,
+                displacement=g.displacement)
+            v0, v1, v2, prim = tessellate_mesh_to_triangles(
+                cage, self.subdivision_level)
+            out.append((v0, v1, v2, prim.astype(np.int32)))
+        return out
+
+    def _build_mb(self, mb_geoms, dev) -> MBAccel:
+        """Multi-segment MB accel (bvh_builder_msmblur.h analog): one
+        SAH build over all-knot union bounds, then a refit at every knot
+        — exact linear bounds per uniform segment — and a temporal-split
+        competition; the JAX package's build, array for array."""
+        # Common knot grid: LCM of the per-geometry segment counts, so
+        # that every geometry's own knots land on common knots (the
+        # piecewise-linear resampling is then exact). Capped; beyond the
+        # cap the motion between knots is chorded.
+        seg_counts = [max(1, len(g.vertex_timesteps) - 1)
+                      for _gid, g in mb_geoms]
+        L = 1
+        for c in seg_counts:
+            L = L * c // math.gcd(L, c)
+        if L + 1 > 65:
+            if self.device.state.verbose >= 1:
+                print(f"embree_tpu_torch: MB knot LCM {L + 1} exceeds cap; "
+                      f"non-aligned motion will be chorded")
+            L = max(seg_counts)
+        S = L + 1
+        knots = np.linspace(0.0, 1.0, S)
+
+        with profile_phase("scene.mb_soups"):
+            per_ts = [[] for _ in range(S)]   # [(v0, v1, v2)] per knot
+            geoms, prims, flips = [], [], []
+            for gid, g in mb_geoms:
+                soups = self._mb_timestep_soups(g)
+                Sg = len(soups)
+                prims.append(soups[0][3])
+                flips.append(soups[0][4] if len(soups[0]) > 4
+                             else np.zeros(soups[0][0].shape[0], np.int32))
+                geoms.append(np.full(soups[0][0].shape[0], gid, np.int32))
+                for s, tk in enumerate(knots):
+                    # resample this geometry's piecewise-linear motion at
+                    # the common knot (exact when the knot grids align)
+                    x = tk * (Sg - 1)
+                    a = int(np.clip(np.floor(x), 0, Sg - 2))
+                    w = np.float32(x - a)
+                    per_ts[s].append(tuple(
+                        (1 - w) * soups[a][k] + w * soups[a + 1][k]
+                        for k in range(3)))
+            geom = np.concatenate(geoms)
+            prim = np.concatenate(prims)
+            flip = np.concatenate(flips)
+            v_ts = [np.stack([np.concatenate([t[k] for t in ts])
+                              for ts in per_ts]) for k in range(3)]
+            los, his = [], []
+            for s in range(S):
+                lo, hi = prim_bounds_np(v_ts[0][s], v_ts[1][s], v_ts[2][s])
+                los.append(lo)
+                his.append(hi)
+
+        def build_range(k0: int, k1: int):
+            """Union topology over knots [k0..k1] + refit bounds at ALL
+            knots (out-of-range knots clamp to the range's edge, so
+            unions over a time range stay conservative and tight).
+            Returns (host topology, per-knot lower and upper tensors,
+            refit SAH cost at each in-range knot)."""
+            lo_u = np.minimum.reduce(los[k0:k1 + 1])
+            hi_u = np.maximum.reduce(his[k0:k1 + 1])
+            bvh_np = build_sah(lo_u, hi_u, BuildSettings(),
+                               backend=self.device.state.builder)
+            bvh_u = bvh_np.to_device(dev)
+            sched = plan_refit(bvh_u)
+            lows, ups, costs = [], [], []
+            for s in range(S):
+                sc = min(max(s, k0), k1)
+                b = refit(bvh_u, sched, torch.from_numpy(los[sc]).to(dev),
+                          torch.from_numpy(his[sc]).to(dev))
+                lows.append(b.lower)
+                ups.append(b.upper)
+                if k0 <= s <= k1:
+                    costs.append(sah_cost(bvh_np._replace(
+                        lower=b.lower.cpu().numpy(),
+                        upper=b.upper.cpu().numpy())))
+            return bvh_np, lows, ups, costs
+
+        # temporal-split competition (bvh_builder_msmblur.h /
+        # heuristic_timesplit_array.h semantics): halve the time domain
+        # while per-range topologies beat the union topology's worst
+        # refit knot by more than 25 %
+        def temporal_ranges(k0, k1, depth):
+            bvh_np, lows, ups, costs = build_range(k0, k1)
+            if depth == 0 or k1 - k0 < 2:
+                return [(k0, k1, bvh_np, lows, ups)]
+            worst = max(costs)
+            km = (k0 + k1) // 2
+            left = build_range(k0, km)
+            right = build_range(km, k1)
+            split_worst = max(max(left[3]), max(right[3]))
+            if worst > 1.25 * split_worst:
+                return (temporal_ranges(k0, km, depth - 1)
+                        + temporal_ranges(km, k1, depth - 1))
+            return [(k0, k1, bvh_np, lows, ups)]
+
+        with profile_phase("scene.build_mb"):
+            ranges = (temporal_ranges(0, S - 1, depth=2) if S > 2
+                      else [(0, S - 1) + build_range(0, S - 1)[:3]])
+        def up(a, dtype=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        v0_ts, v1_ts, v2_ts = (up(v) for v in v_ts)
+        ids = dict(geom_id=up(geom, np.int32), prim_id=up(prim, np.int32),
+                   uv_flip=up(flip, np.int32))
+        if len(ranges) == 1:
+            _k0, _k1, bvh_np, lows, ups = ranges[0]
+            bvh0 = bvh_np.to_device(dev)._replace(lower=lows[0],
+                                                  upper=ups[0])
+            return MBAccel(bvh=bvh0, lower_ts=torch.stack(lows),
+                           upper_ts=torch.stack(ups), v0_ts=v0_ts,
+                           v1_ts=v1_ts, v2_ts=v2_ts, **ids)
+        # merge the range subtrees under one MB4D root whose children
+        # carry the time subranges (AlignedNodeMB4D, bvh.h:837)
+        if self.device.state.verbose >= 1:
+            print(f"embree_tpu_torch: MB temporal splits -> "
+                  f"{len(ranges)} time ranges "
+                  f"{[(r[0], r[1]) for r in ranges]}")
+        W = ranges[0][2].child.shape[1]
+        assert len(ranges) <= W
+        Ms = [r[2].child.shape[0] for r in ranges]
+        ords = [np.asarray(r[2].prim_order) for r in ranges]
+        M_tot = 1 + sum(Ms)
+        child = np.zeros((M_tot, W), np.int64)
+        count = np.full((M_tot, W), -1, np.int64)
+        tlo = np.zeros((M_tot, W), np.float32)
+        thi = np.ones((M_tot, W), np.float32)
+        lower_ts = np.zeros((S, M_tot, W, 3), np.float32)
+        upper_ts = np.zeros((S, M_tot, W, 3), np.float32)
+        node_base = 1
+        prim_base = 0
+        for ri, (k0, k1, b, lows, ups) in enumerate(ranges):
+            cn = np.asarray(b.count)
+            M = cn.shape[0]
+            # offset node refs and leaf prim starts into the concatenation
+            ch = np.where(cn == 0, b.child + node_base,
+                          np.where(cn > 0, b.child + prim_base, b.child))
+            child[node_base:node_base + M] = ch
+            count[node_base:node_base + M] = cn
+            for s in range(S):
+                lower_ts[s, node_base:node_base + M] = lows[s].cpu().numpy()
+                upper_ts[s, node_base:node_base + M] = ups[s].cpu().numpy()
+            # root child ri -> this subtree's root, gated to its range
+            child[0, ri] = node_base
+            count[0, ri] = 0
+            tlo[0, ri] = k0 / (S - 1)
+            thi[0, ri] = k1 / (S - 1)
+            vmask = cn[0] >= 0
+            for s in range(S):
+                lower_ts[s, 0, ri] = lower_ts[s, node_base][vmask].min(0)
+                upper_ts[s, 0, ri] = upper_ts[s, node_base][vmask].max(0)
+            node_base += M
+            prim_base += ords[ri].shape[0]
+        bvh0 = BVH(lower=up(lower_ts[0]), upper=up(upper_ts[0]),
+                   child=up(child, np.int32), count=up(count, np.int32),
+                   prim_order=up(np.concatenate(ords), np.int32))
+        return MBAccel(bvh=bvh0, lower_ts=up(lower_ts),
+                       upper_ts=up(upper_ts), v0_ts=v0_ts, v1_ts=v1_ts,
+                       v2_ts=v2_ts, **ids, time_lo=up(tlo),
+                       time_hi=up(thi))
 
     def _progress(self, f: float) -> None:
         """Progress-monitor cancellation (scene.cpp:871-879)."""
@@ -386,8 +609,9 @@ class Scene:
         camera and shadow rays go to the packet kernel whatever their
         count. `mask` is the per-ray mask (EMBREE_RAY_MASK): an int or
         an integer array of the rays' batch shape; a hit stands only
-        where (geometry.mask & mask) != 0. `time` (motion blur) is not
-        ported yet."""
+        where (geometry.mask & mask) != 0; masks act on the static
+        triangles only. `time` in [0, 1] (a scalar or one a ray) samples
+        motion-blur geometry (ray.time); None means 0."""
         cs = self._require_commit()
         return scene_intersect(cs, rays, isa=self.device.state.isa,
                                time=time, filter_fn=self.intersection_filter,
@@ -415,6 +639,9 @@ class Scene:
               f"{ts.num_mids if ts else 0} mids, "
               f"{ct.num_tiles if ct else 0} compressed tiles"
               + (f" ({ct.mode}, level {ct.comp_level})" if ct else "")
+              + (f", {cs.mb.v0_ts.shape[1]} motion-blur triangles at "
+                 f"{cs.mb.num_timesteps} knots in {cs.mb.bvh.num_nodes} "
+                 f"nodes" if cs.mb is not None else "")
               + f", build {self.build_time_s * 1e3:.1f} ms")
 
 
@@ -433,6 +660,11 @@ def _scene_bytes(cs: CommittedScene) -> int:
                  + [getattr(ct, k) for k in ct.ARRAYS])
     if cs.compressed_kernel is not None:
         n += cs.compressed_kernel.device_bytes
+    if cs.mb is not None:
+        n += sum(a.numel() * a.element_size()
+                 for a in list(cs.mb.bvh) + list(cs.mb[1:])
+                 if a is not None)
+        n += cs.mb_kernel.device_bytes
     return n
 
 
@@ -493,10 +725,22 @@ def _fold_compressed(cs: CommittedScene, flat: Rays, hits: Hits) -> Hits:
         for a, b in zip(ch, hits)))
 
 
+def _fold_mb(cs: CommittedScene, flat: Rays, hits: Hits, tm) -> Hits:
+    """The AccelN step for the motion-blur accel: the walk at each ray's
+    time `tm` (R,) starts from the running t and wins where it hits."""
+    hm = intersect_mb_kernel(cs.mb_kernel, cs.mb,
+                             Rays(flat.org, flat.dir, flat.tnear, hits.t), tm)
+    use_m = hm.valid
+    return Hits(*(torch.where(
+        use_m.reshape(use_m.shape + (1,) * (a.ndim - use_m.ndim)), a, b)
+        for a, b in zip(hm, hits)))
+
+
 def _closest_flat(cs: CommittedScene, flat: Rays, coherent: bool,
-                  ray_mask) -> Hits:
+                  ray_mask, tm) -> Hits:
     """Unfiltered closest hit of a flat batch: the triangles through the
-    kernel that the dispatch rule names, then the compressed accel."""
+    kernel that the dispatch rule names, then the compressed accel, then
+    the motion-blur accel at the rays' times `tm`."""
     if cs.tris.num_prims == 0:
         hits = miss_hits(flat.batch_shape, flat.tfar, device=cs.device)
     else:
@@ -509,11 +753,13 @@ def _closest_flat(cs: CommittedScene, flat: Rays, coherent: bool,
         hits = _apply_patch_uv(cs, _finalize_hits(cs.tris, flat, t, prim))
     if cs.compressed is not None:
         hits = _fold_compressed(cs, flat, hits)
+    if cs.mb is not None:
+        hits = _fold_mb(cs, flat, hits, tm)
     return hits
 
 
 def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
-                              coherent: bool, ray_mask) -> Hits:
+                              coherent: bool, ray_mask, tm) -> Hits:
     """Intersection filters as a restart wavefront (the JAX package's
     formulation): run the unfiltered kernel for the closest hit, apply
     the filter to the whole batch as tensor ops, and re-traverse the
@@ -544,7 +790,7 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
     for _ in range(FILTER_MAX_ROUNDS if R else 0):
         tf_eff = torch.where(done, -inf, tf)
         h = _closest_flat(cs, Rays(org, d, tnear_cur, tf_eff), coherent,
-                          ray_mask)
+                          ray_mask, tm)
         hitm = h.valid & ~done
         accept = torch.as_tensor(
             filter_fn(org, d, h.t, h.u, h.v, h.ng, h.geom_id, h.prim_id),
@@ -579,26 +825,33 @@ def scene_intersect(cs: CommittedScene, rays: Rays, isa: str = "default",
                     ray_mask=None) -> Hits:
     """Functional entry: closest hit of every ray against the committed
     triangle soup, through the kernel the module docstring's dispatch
-    rule names, then against the compressed accel where the scene has
-    one. `isa` is accepted and selects nothing."""
-    if time is not None:
-        raise _not_ported("motion blur (time)")
+    rule names, then against the compressed accel and the motion-blur
+    accel where the scene has them. `time` (a scalar, or one value in
+    [0, 1] a ray in any shape; 0 when None) places the rays in the
+    shutter; only motion-blur geometry reads it. `isa` is accepted and
+    selects nothing."""
     shape = rays.batch_shape
-    if cs.tris.num_prims == 0 and cs.compressed is None:
+    if cs.tris.num_prims == 0 and cs.compressed is None and cs.mb is None:
         return miss_hits(shape, rays.tfar, device=cs.device)
     flat = _flat_rays(cs, rays)
     rm = _flat_mask(cs, ray_mask, shape)
+    tm = (ray_times(0.0 if time is None else time, flat.tnear.shape[0],
+                    cs.device) if cs.mb is not None else None)
     if filter_fn is not None:
-        h = _intersect_filter_restart(cs, flat, filter_fn, coherent, rm)
+        h = _intersect_filter_restart(cs, flat, filter_fn, coherent, rm, tm)
     else:
-        h = _closest_flat(cs, flat, coherent, rm)
+        h = _closest_flat(cs, flat, coherent, rm, tm)
     return Hits(*(x.reshape(shape + x.shape[1:]) for x in h))
 
 
 def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
                    coherent: bool = False, ray_mask=None) -> torch.Tensor:
     """Functional entry: any hit of every ray (bool, the rays' batch
-    shape); the same dispatch as `scene_intersect`."""
+    shape); the same dispatch as `scene_intersect`. A scene with
+    motion-blur geometry raises: occlusion takes no time, and the JAX
+    package answers it without the motion-blur accel."""
+    if cs.mb is not None:
+        raise _not_ported("occluded over motion-blur geometry")
     shape = rays.batch_shape
     flat = _flat_rays(cs, rays)
     rm = _flat_mask(cs, ray_mask, shape)

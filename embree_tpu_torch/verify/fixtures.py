@@ -77,3 +77,23 @@ def subdiv_cube():
         [1, 5, 6, 2], [2, 6, 7, 3], [3, 7, 4, 0]], np.int32)
     counts = np.full(6, 4, np.int32)
     return verts, counts, faces.reshape(-1)
+
+
+def crossing_clusters(rng: np.random.Generator, n: int = 220, S: int = 5):
+    """Two clusters of small random triangles that swap places over the
+    shutter (one sweeps from x = -6 to +6, the other back), as S vertex
+    timesteps and the (n, 3) indices: a scene on which one union
+    topology is poor and the motion-blur build splits time."""
+    tris = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    e1 = rng.normal(size=(n, 3)).astype(np.float32) * 0.05
+    e2 = rng.normal(size=(n, 3)).astype(np.float32) * 0.05
+    off0 = np.where(np.arange(n)[:, None] < n // 2, [-6.0, 0, 0],
+                    [6.0, 0, 0]).astype(np.float32)
+    verts_t = []
+    for s in range(S):
+        w = s / (S - 1)
+        p0 = tris + ((1 - w) * off0 - w * off0)
+        verts_t.append(np.concatenate([p0, p0 + e1, p0 + e2]))
+    idx = np.stack([np.arange(n), np.arange(n) + n,
+                    np.arange(n) + 2 * n], 1).astype(np.int32)
+    return verts_t, idx

@@ -1,9 +1,21 @@
 """Host-side build of the PyTorch port against the JAX package: the
 numpy modules the port copied give the same arrays bit for bit on the
-same inputs."""
+same inputs.
+
+`reference_native` is the module fixture the other port test files
+import: it makes sure the JAX package's native SAH builder is loaded in
+this process. That package compiles `native/libet_sah.so` in place at
+first use; a test process that loads the file while another one still
+writes it marks the library failed and from then on builds every BVH
+with its numpy builder, silently, so a comparison of BVH-dependent
+arrays between the two packages would compare different trees."""
+import os
+import subprocess
+
 import numpy as np
 import pytest
 
+from embree_tpu.build import native as ref_native
 from embree_tpu.build import sah as ref_sah
 from embree_tpu.build import treelets as ref_treelets
 from embree_tpu.build.native import build_sah_native as ref_build_native
@@ -16,6 +28,55 @@ from embree_tpu_torch.build.native import (build_sah_native,
                                            native_available)
 from embree_tpu_torch.scene.prims import prim_bounds_np
 from embree_tpu_torch.verify import fixtures as port_fixtures
+
+
+def ensure_reference_native(mp: pytest.MonkeyPatch, tmp_dir) -> None:
+    """Load the JAX package's native SAH library; where its own loader
+    failed, build the library privately into `tmp_dir` (a temporary file
+    renamed into place) and point the loader there through `mp`."""
+    if ref_native._load() is not None:
+        return
+    so = os.path.join(str(tmp_dir), "libet_sah.so")
+    tmp = f"{so}.{os.getpid()}.tmp"
+    subprocess.run(["g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                    "-fPIC", "-pthread", ref_native._SRC, "-o", tmp],
+                   check=True, capture_output=True)
+    os.replace(tmp, so)
+    mp.setattr(ref_native, "_SO", so)
+    mp.setattr(ref_native, "_failed", False)
+    mp.setattr(ref_native, "_lib", None)
+    assert ref_native._load() is not None
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_native(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        ensure_reference_native(mp, tmp_path_factory.mktemp("ref_native"))
+        yield
+
+
+def test_reference_native_recovers_from_a_failed_load(monkeypatch,
+                                                      tmp_path):
+    """The loader in the state a half-written library leaves: the fixture
+    builds a private library and both builders agree again."""
+    monkeypatch.setattr(ref_native, "_failed", True)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    assert ref_native.build_sah_native(np.zeros((1, 3), np.float32),
+                                       np.ones((1, 3), np.float32)) is None
+    monkeypatch.setattr(ref_native, "_failed", False)
+    monkeypatch.setattr(ref_native, "_SO", str(tmp_path / "absent.so"))
+    monkeypatch.setattr(ref_native, "_SRC", str(tmp_path / "absent.cpp"))
+    assert ref_native._load() is None      # the loader fails again
+    monkeypatch.setattr(ref_native, "_SRC", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "native", "sah_builder.cpp"))
+    ensure_reference_native(monkeypatch, tmp_path)
+    assert ref_native._SO == str(tmp_path / "libet_sah.so")
+    v0, v1, v2 = _soup(12, 500)
+    lo, hi = prim_bounds_np(v0, v1, v2)
+    for x, y in zip(build_sah_native(lo, hi, branching=4, max_leaf=16),
+                    ref_build_native(lo, hi, branching=4, max_leaf=16)):
+        np.testing.assert_array_equal(x, y)
 
 
 def _soup(seed, n):

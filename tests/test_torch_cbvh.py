@@ -22,6 +22,7 @@ import embree_tpu_torch as ett
 from embree_tpu_torch.traverse import cbvh
 from embree_tpu_torch.traverse import cbvh_kernel as ck
 from embree_tpu_torch.verify.fixtures import subdiv_cube
+from test_torch_build import reference_native  # noqa: F401,E402
 
 LEVELS = (2, 2)
 N_RAYS = 64

@@ -18,6 +18,7 @@ from embree_tpu_torch.render import noise
 from embree_tpu_torch.scene import subdiv_accel as sa
 from embree_tpu_torch.traverse import cbvh_kernel as ck
 from embree_tpu_torch.verify.fixtures import subdiv_cube
+from test_torch_build import reference_native  # noqa: F401,E402
 
 MODES = ("box", "leaf", "grid", "full")
 FLAVORS = ("com", "non", "mid")

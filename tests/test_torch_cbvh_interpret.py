@@ -24,6 +24,7 @@ from embree_tpu_torch.convert import compressed_accel_from_reference
 from embree_tpu_torch.traverse import cbvh
 from embree_tpu_torch.traverse import cbvh_kernel as ck
 from embree_tpu_torch.verify.fixtures import subdiv_cube
+from test_torch_build import reference_native  # noqa: F401,E402
 
 LEVELS = (2, 2)
 N_RAYS = 48

@@ -20,6 +20,7 @@ from embree_tpu.diff import hit as ref_hit
 from embree_tpu.scene.scene import scene_intersect as ref_scene_intersect
 from embree_tpu_torch.diff import hit as port_hit
 from embree_tpu_torch.verify.fixtures import triangle_sphere
+from test_torch_build import reference_native  # noqa: F401,E402
 
 CFG = "ignore_config_files=1"
 

@@ -222,12 +222,14 @@ def test_no_try_around_the_launch():
                 "traverse/stream.py", "diff/hit.py", "convert.py",
                 "traverse/cbvh.py", "traverse/cbvh_kernel.py",
                 "scene/subdiv_accel.py",
-                "render/tutorials/displacement_geometry.py"):
+                "render/tutorials/displacement_geometry.py",
+                "traverse/mb.py", "traverse/mb_kernel.py", "build/refit.py",
+                "render/tutorials/motion_blur_geometry.py"):
         with open(os.path.join(PKG, rel)) as f:
             tree = ast.parse(f.read())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{rel} has a try statement"
     for rel in ("rowtrace2.py", "packet_kernel.py", "cbvh.py",
-                "cbvh_kernel.py"):
+                "cbvh_kernel.py", "mb.py", "mb_kernel.py"):
         with open(os.path.join(PKG, "traverse", rel)) as f:
             assert "torch.compile" not in f.read()

@@ -17,7 +17,7 @@ import torch
 
 import embree_tpu as et
 import embree_tpu_torch as ett
-from embree_tpu.build import sah as ref_sah
+from embree_tpu.build import native as ref_native
 from embree_tpu.traverse.pallas_packet import (intersect_pallas,
                                               occluded_pallas)
 from embree_tpu.traverse.pallas_packet import pack_scene as ref_pack_scene
@@ -26,6 +26,7 @@ from embree_tpu_torch.core import stats as port_stats
 from embree_tpu_torch.scene.prims import prim_bounds_np
 from embree_tpu_torch.traverse import packet_kernel as pk
 from embree_tpu_torch.verify.fixtures import random_triangles, triangle_sphere
+from test_torch_build import reference_native  # noqa: F401,E402
 
 
 def soup(verts, idx):
@@ -83,15 +84,16 @@ def assert_matches(ref, port):
     return ties
 
 
-@pytest.mark.parametrize("width", [4, 8])
-def test_pack_scene_byte_equal(rng, width):
+def _check_pack_scene_byte_equal(rng, width):
+    """Both packers on the SAME BVH arrays: the builder is not this
+    test's subject (test_torch_build.py holds the two builders equal),
+    and the JAX package's build_sah takes its numpy builder silently when
+    its native library failed to load."""
     verts, idx = random_triangles(rng, 257, extent=5.0, size=1.0)
     v0, v1, v2 = soup(verts, idx)
     lo, hi = prim_bounds_np(v0, v1, v2)
     bvh = build_sah(lo, hi, BuildSettings(branching_factor=width))
-    ref_bvh = ref_sah.build_sah(
-        lo, hi, ref_sah.BuildSettings(branching_factor=width))
-    ref = ref_pack_scene(ref_bvh, None, host_tris=(v0, v1, v2))
+    ref = ref_pack_scene(bvh, None, host_tris=(v0, v1, v2))
     ps = pk.pack_scene(bvh, (v0, v1, v2), "cpu")
     assert (ps.num_nodes, ps.num_prims, ps.width) == (
         ref.num_nodes, ref.num_prims, ref.width) == (
@@ -108,6 +110,23 @@ def test_pack_scene_byte_equal(rng, width):
     assert not ps.tdata[:, 120:].any() and not ps.tdata[-1].any()
     assert 2 <= ps.depth <= 64
     assert ps.depth == pk.tree_depth(bvh.child, bvh.count)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_pack_scene_byte_equal(rng, width):
+    _check_pack_scene_byte_equal(rng, width)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_pack_scene_byte_equal_without_reference_native(monkeypatch, rng,
+                                                        width):
+    """With the JAX package's native loader in its failed state (what a
+    half-written library from a concurrent in-place build leaves behind)
+    the packing test still holds."""
+    monkeypatch.setattr(ref_native, "_failed", True)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    assert not ref_native.native_available()
+    _check_pack_scene_byte_equal(rng, width)
 
 
 @pytest.mark.parametrize("ntri,nray", [(5, 64), (60, 100)])

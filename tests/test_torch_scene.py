@@ -19,6 +19,7 @@ import embree_tpu_torch as ett
 from embree_tpu_torch.convert import committed_scene_from_reference
 from embree_tpu_torch.scene import scene as port_scene
 from embree_tpu_torch.verify.fixtures import random_triangles, triangle_sphere
+from test_torch_build import reference_native  # noqa: F401,E402
 
 
 def quad_sphere(center, radius, n):
@@ -287,11 +288,13 @@ def test_unported_arguments_raise(rng):
             fn()
         assert e.value.code == ett.Error.INVALID_OPERATION
 
-    raises_not_ported(lambda: sc.intersect(rays, time=0.5))
-    raises_not_ported(lambda: ett.scene_intersect(
-        sc.committed, rays, time=torch.zeros(4)))
-    # ray masks and intersection filters are ported: they answer
+    # ray times, ray masks and intersection filters are ported: they
+    # answer; a time on a scene without motion blur changes nothing
     plain = sc.intersect(rays)
+    for tm in (0.5, torch.zeros(4)):
+        timed = ett.scene_intersect(sc.committed, rays, time=tm)
+        assert torch.equal(timed.t, plain.t)
+        assert torch.equal(timed.gprim, plain.gprim)
     assert plain.valid.all()                   # origins inside the sphere
     assert torch.equal(sc.intersect(rays, mask=torch.ones(4)).valid,
                        plain.valid)

@@ -19,6 +19,7 @@ from embree_tpu_torch.traverse import packet_kernel as pk
 from embree_tpu_torch.traverse import rowtrace2 as rt2
 from embree_tpu_torch.traverse import stream as port_stream
 from embree_tpu_torch.verify.fixtures import random_triangles, triangle_sphere
+from test_torch_build import reference_native  # noqa: F401,E402
 
 CFG = "ignore_config_files=1"
 

@@ -293,9 +293,18 @@ def test_not_ported_arguments_raise():
                             edge_levels=np.full(24, 4.0, np.float32)))
     with pytest.raises(ett.RaytracerError, match="not ported yet"):
         s.commit()
+    # a ray time is ported; on a scene without motion blur it changes
+    # nothing, and occlusion over motion-blur geometry is what still raises
     sc = make_scene("leaf")
+    rays = rand_rays(1, 4)
+    assert torch.equal(sc.intersect(rays, time=0.5).t, sc.intersect(rays).t)
+    mb = ett.Scene(ett.Device("ignore_config_files=1", device="cpu"))
+    mb.attach(ett.SubdivMeshMB(verts, verts * np.float32(1.5), counts,
+                               indices))
+    mb.set_levels(2, 2)
+    mb.commit()
     with pytest.raises(ett.RaytracerError, match="not ported yet"):
-        sc.intersect(rand_rays(1, 4), time=0.5)
+        mb.occluded(rays)
 
 
 def test_eager_scene_reports_patch_uv_next_to_plain_triangles():

@@ -25,6 +25,7 @@ from embree_tpu_torch.render import image as port_image
 from embree_tpu_torch.render.tutorial_app import TutorialApplication
 from embree_tpu_torch.render.tutorials import triangle_geometry as port_tg
 from embree_tpu_torch.traverse import packet_kernel as pk
+from test_torch_build import reference_native  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden",
