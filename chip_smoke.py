@@ -37,10 +37,21 @@ the public entry points:
     and last knot (packet kernel) and against a brute-force test of the
     lerped triangles; small MB scenes (two to five timesteps, temporal
     splits, quads, a subdivision mesh, beside static triangles and
-    beside a compressed accel); and the `motion_blur_geometry` tutorial.
+    beside a compressed accel); and the `motion_blur_geometry` tutorial;
+  * the hair path (kernel B3, `hair_cone` and `hair_ribbon`, each with an
+    any-hit variant): the `hair_geometry` tutorial's fur at 2^18 strands
+    (1,572,864 round sub-segments in strand-aligned clusters, over its
+    ground plane) with 2^21 incoherent rays and a 1920x1080 frame, and
+    2^16 random flat curves (524,288 ribbon sub-segments in 13 clusters),
+    through `scene.intersect` / `scene.occluded`, held against B3's plain
+    version on every cluster and against a brute force over every
+    sub-segment; line segments, a segment soup and motion-blur curves on
+    the torch-op walks against brute forces; the `hair_geometry` and
+    `curve_geometry` tutorials.
 
-Answers are checked against the plain versions, against a brute-force
-test of every triangle, between the two kernels, and against autograd;
+Answers are checked against the plain versions, against brute-force
+tests of every primitive, between the two triangle kernels, and against
+autograd;
 kernels are timed with CUDA events. Any failed phase ends the run with a
 non-zero exit code; there is no CPU fallback. The last line of the
 output is `{"ok": true, "device": {...}}`; the line `{"kernels": [...]}`
@@ -86,7 +97,15 @@ from embree_tpu_torch.render.tutorials import (  # noqa: E402
     triangle_geometry as tutorial)
 from embree_tpu_torch.scene.prims import prim_bounds_np  # noqa: E402
 from embree_tpu_torch.scene.scene import _scene_bytes  # noqa: E402
+from embree_tpu_torch.core.math import rows_times  # noqa: E402
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    curve_geometry as curve_tutorial)
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    hair_geometry as hair_tutorial)
+from embree_tpu_torch.scene.scene import _fold_hair  # noqa: E402
 from embree_tpu_torch.traverse import cbvh_kernel as ck  # noqa: E402
+from embree_tpu_torch.traverse import hair_kernel as hk  # noqa: E402
+from embree_tpu_torch.traverse.hair import _cone_hit  # noqa: E402
 from embree_tpu_torch.traverse import mb_kernel as mk  # noqa: E402
 from embree_tpu_torch.traverse import packet_kernel as pk  # noqa: E402
 from embree_tpu_torch.traverse import rowtrace2 as rt2  # noqa: E402
@@ -95,8 +114,8 @@ from embree_tpu_torch.traverse.packet import _finalize_hits  # noqa: E402
 from embree_tpu_torch.traverse.stream import (sort_rays_stream,  # noqa: E402
                                               unsort_by_perm)
 from embree_tpu_torch.verify.fixtures import (  # noqa: E402
-    crossing_clusters, quad_sphere, random_triangles, subdiv_cube,
-    triangle_sphere)
+    crossing_clusters, hair_ball, quad_sphere, random_triangles,
+    subdiv_cube, triangle_sphere)
 
 SCENE_RES = 707            # triangle_sphere(707) = 998,284 triangles
 SMALL_RES = 223            # triangle_sphere(223) = 99,012: under ROWTRACE_MIN_PRIMS
@@ -159,6 +178,23 @@ MB_SMALL_RAYS = 1 << 16
 MB_SLAB_FLOPS = SLAB_FLOPS + 2
 MB_KNOT_FLOPS = 6
 MB_TRI_FLOPS = 27 + TRI_FLOPS
+# the hair path (kernel B3): main-hair is the hair_geometry tutorial's fur
+# at 2^18 strands, tessellation 6; hairball-flat 2^16 random flat curves,
+# K = 8; the rays B3's plain version walks, and the brute force's rays
+HAIR_FUR_STRANDS = 1 << 18
+HAIR_BALL_CURVES = 1 << 16
+HAIR_SEED = 0x4A1B
+HAIR_PLAIN_LOG2 = 16
+HAIR_BRUTE_RAYS = 1 << 12
+SOUP_RAYS = 1 << 14        # rays of the segment-soup and MB-curve scenes
+# float32 operations of one B3 leaf test, counted from csrc/packet.cu:
+# cone_hit (3 axis, 5 aa, 1 rr, 3 q, 5 x 5 dot products, 33 for A, B, C,
+# 4 disc, 1 sqrt, 1 select, 2 x 3 roots, 3 for s, 5 compares) and
+# ribbon_hit (5 dd, 6 differences, 2 x 6 depths, 12 projections, 3 ab,
+# 6 denom, 8 s, 6 closest point, 5 dist2, 1 + 3 + 3 radius and depth,
+# 4 compares); a node's child slab tests as for B2
+CONE_FLOPS = 87
+RIBBON_FLOPS = 74
 
 
 T_START = time.perf_counter()
@@ -458,13 +494,16 @@ class Launches:
     exit and adds them to the run's totals."""
 
     totals = {"rowtrace2": 0, "packet": 0, "cbvh": 0, "cbvh_occluded": 0,
-              "mb": 0, "mb_occluded": 0}
+              "mb": 0, "mb_occluded": 0, "hair_cone": 0, "hair_ribbon": 0,
+              "hair_cone_occluded": 0, "hair_ribbon_occluded": 0}
 
     def __enter__(self):
         rt2.launches = 0
         pk.launches = 0
         ck.launches["closest"] = ck.launches["occluded"] = 0
         mk.launches["closest"] = mk.launches["occluded"] = 0
+        for k in hk.launches:
+            hk.launches[k] = 0
         return self
 
     def __exit__(self, *exc):
@@ -473,9 +512,22 @@ class Launches:
         self.cbvh_occluded = ck.launches["occluded"]
         self.mb = mk.launches["closest"]
         self.mb_occluded = mk.launches["occluded"]
+        for k, v in hk.launches.items():
+            setattr(self, "hair_" + k, v)
         for k in Launches.totals:
             Launches.totals[k] += getattr(self, k)
         return False
+
+    def expect_hair(self, what, cs, closest, occluded):
+        """`closest` intersect and `occluded` occluded requests on `cs`:
+        one B3 launch a cluster and request, of the cluster's leaf type."""
+        want = {k: 0 for k in hk.launches}
+        for h in cs.hairs:
+            want[h.packed.leaf] += closest
+            want[h.packed.leaf + "_occluded"] += occluded
+        got = {k: getattr(self, "hair_" + k) for k in hk.launches}
+        if got != want:
+            raise AssertionError(f"{what}: B3 launches {got}, expected {want}")
 
     def expect_mb(self, what, closest, occluded):
         if (self.mb, self.mb_occluded) != (closest, occluded):
@@ -1062,6 +1114,299 @@ def mb_brute_check(label, accel, flat: Rays, times, valid, t):
         f"t within {rel:g} relative")
 
 
+def hair_rays(rng, n, device, packed_world, extent=3.0, retire_every=0):
+    """Rays from origins uniform in +-extent: every second one aimed at
+    a random point of a random segment of `packed_world` ((S, 8) world
+    frame [p0 p1 r0 r1] on the card), the others uniform; every
+    `retire_every`-th ray retired (tfar = -inf)."""
+    org = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    d = unit_dirs(rng, n)
+    seg = packed_world.cpu().numpy()
+    pick = seg[rng.integers(0, seg.shape[0], n)]
+    w = rng.uniform(0, 1, (n, 1)).astype(np.float32)
+    aim = pick[:, :3] * (1 - w) + pick[:, 3:6] * w - org
+    aim /= np.linalg.norm(aim, axis=1, keepdims=True)
+    d[::2] = aim[::2]
+    r = ett.make_rays(org, d, device=device)
+    if retire_every:
+        tf = r.tfar.clone()
+        tf[::retire_every] = -math.inf
+        r = r._replace(tfar=tf)
+    return r
+
+
+def world_segments(cs):
+    """Every hair cluster's segments rotated back to the world frame."""
+    out = []
+    for h in cs.hairs:
+        g = h.packed.seg
+        out.append(torch.cat([rows_times(g[:, 0:3], h.rot.T),
+                              rows_times(g[:, 3:6], h.rot.T), g[:, 6:8]], 1))
+    return torch.cat(out)
+
+
+def cluster_rays(h, rays: Rays, t=None) -> Rays:
+    """Flat rays rotated into hair cluster `h`'s frame."""
+    f = flat_rays(rays)
+    return Rays(rows_times(f.org, h.rot), rows_times(f.dir, h.rot),
+                f.tnear, f.tfar if t is None else t)
+
+
+def compare_hair_plain(ph, rays, label):
+    """B3, main and counting builds, closest and any hit, against its
+    plain version on the same card tensors (rays in the cluster's frame):
+    t at 0 ulp, slot equal, counters equal, no dropped push, any hit
+    equal to (closest hit found or tfar = -inf). Returns (max abs err of
+    t, plain ms closest, plain ms occluded, stats of the closest hit)."""
+    res = {}
+    for occl in (False, True):
+        t_k, s_k, _ = hk.hair_trace(ph, rays, occl)
+        t_s, s_s, st_k = hk.hair_trace(ph, rays, occl, stats=True)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        t_p, s_p, st_p = hk.hair_plain(ph, rays, occl, stats=True)
+        ev1.record()
+        torch.cuda.synchronize()
+        mode = "any hit" if occl else "closest"
+        for tk, sk, what in ((t_k, s_k, ""), (t_s, s_s, " (counting build)")):
+            ulps = ulp_distance(tk, t_p)
+            if ulps != 0 or not torch.equal(sk, s_p):
+                raise AssertionError(
+                    f"{label}, {mode}{what}: t {ulps} ulp apart, slot "
+                    f"differs on {int((sk != s_p).sum())} rays")
+        if st_k != st_p:
+            raise AssertionError(f"{label}, {mode}: counters differ: {st_k} "
+                                 f"vs {st_p}")
+        if st_k["dropped_pushes"]:
+            raise AssertionError(f"{label}, {mode}: dropped pushes")
+        fin = torch.isfinite(t_k) & torch.isfinite(t_p)
+        err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+        res[occl] = (t_k, s_k, st_k, ev0.elapsed_time(ev1), err)
+    (t_c, s_c, st_c, ms_c, err), (t_o, s_o, st_o, ms_o, _) = \
+        res[False], res[True]
+    tfar = rays.tfar.reshape(-1)
+    if not torch.equal(t_o == -math.inf, (s_c >= 0) | (tfar == -math.inf)):
+        raise AssertionError(f"{label}: any hit disagrees with closest hit")
+    if not torch.equal(s_o, torch.full_like(s_o, -1)):
+        raise AssertionError(f"{label}: the any-hit variant wrote a slot")
+    n = t_c.numel()
+    log(f"  {label}: {n} rays, {int((s_c >= 0).sum())} hits; t at 0 ulp, "
+        f"slot equal, counters equal (per ray {st_c['node_visits'] / n:.2f} "
+        f"nodes, {st_c['seg_tests'] / n:.2f} segment tests; any hit "
+        f"{st_o['node_visits'] / n:.2f} nodes), 0 dropped; plain {ms_c:.0f} "
+        f"+ {ms_o:.0f} ms")
+    return err, ms_c, ms_o, st_c
+
+
+def hair_small_scenes(device_cfg=""):
+    """(label, scene) of the small hair scenes: the JAX package's test hair
+    ball (120 curves, random and diagonal, round and flat), its head-on
+    ribbon, the tutorial's fur at 120 strands."""
+    rng = np.random.default_rng(0xB3)
+    cases = []
+    for diagonal in (False, True):
+        verts, idx = hair_ball(rng, 120, diagonal=diagonal)
+        for flat in (False, True):
+            cases.append((f"hair_ball(120{', diagonal' if diagonal else ''})"
+                          f" {'flat' if flat else 'round'}",
+                          [ett.BezierCurves(verts, idx, tessellation_rate=8,
+                                            flat=flat)]))
+    cases.append(("head-on ribbon", [ett.BezierCurves(
+        np.array([[0, 0, 0, 0.1], [0, 0.33, 0, 0.1], [0, 0.66, 0, 0.1],
+                  [0, 1, 0, 0.1]], np.float32), np.array([0], np.int32),
+        flat=True)]))
+    cps, idx = hair_tutorial.make_fur(120)
+    cases.append(("make_fur(120), K = 6", [ett.BezierCurves(
+        cps, idx, tessellation_rate=6)]))
+    out = []
+    for label, geoms in cases:
+        sc = ett.Scene(ett.Device("ignore_config_files=1" + device_cfg))
+        for g in geoms:
+            sc.attach(g)
+        sc.commit()
+        out.append((label, sc))
+    return out
+
+
+def hair_small_scene_checks(device):
+    """Phase 3e: B3 against its plain version on every cluster of the
+    small hair scenes, and each scene's requests through the kernel.
+    Returns {leaf: max abs err of t}."""
+    rng = np.random.default_rng(0x3E)
+    worst = {"cone": 0.0, "ribbon": 0.0}
+    for label, sc in hair_small_scenes():
+        cs = sc.committed
+        rays = hair_rays(rng, 4096, device, world_segments(cs),
+                         retire_every=7)
+        for k, h in enumerate(cs.hairs):
+            ph = h.packed
+            err, _, _, _ = compare_hair_plain(
+                ph, cluster_rays(h, rays),
+                f"{label}, cluster {k} ({ph.leaf}, {ph.num_segments} "
+                f"segments, {ph.num_nodes} nodes)")
+            worst[ph.leaf] = max(worst[ph.leaf], err)
+        with Launches() as lc:
+            hits = sc.intersect(rays)
+            occ = sc.occluded(rays)
+            torch.cuda.synchronize()
+        lc.expect_hair(f"{label}: intersect + occluded", cs, 1, 1)
+        tfar = rays.tfar.reshape(-1)
+        if not torch.equal(occ, hits.valid | (tfar == -math.inf)):
+            raise AssertionError(f"{label}: occluded disagrees with intersect")
+        if not hits.valid.any():
+            raise AssertionError(f"{label}: no ray hit")
+    return worst
+
+
+def hair_bound(ph_list, stats_list, rays):
+    """Least time the card could take for what this run's rays needed of
+    B3 over all clusters of a scene: the larger of bytes / memory rate
+    (a ray's org, dir, tnear and tfar in and (t, slot) out a launch, the
+    8 x WIDTH floats of a touched node row that the walk reads, as
+    `packet_bound` counts them, and 32 B a segment of a touched segment
+    row, each once) and counted float32 operations / the non-tensor fp32
+    peak."""
+    nbytes = flops = 0
+    for ph, st in zip(ph_list, stats_list):
+        nbytes += (rays * (8 * 4 + 2 * 4)
+                   + st["nodes_touched"] * 8 * hk.WIDTH * 4
+                   + st["rows_touched"] * hk.NS_PER_ROW * 32)
+        flops += (st["node_visits"] * hk.WIDTH * SLAB_FLOPS
+                  + st["seg_tests"] * (RIBBON_FLOPS if ph.flat
+                                       else CONE_FLOPS))
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FP32_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def hair_times(label, cs, rays):
+    """Times, counters and bound of B3 over every cluster of `cs` on one
+    batch, closest and any hit, each cluster from tfar as a request's
+    first fold would (the request itself starts each cluster from the
+    running t)."""
+    out = {}
+    n = rays.tnear.numel()
+    crs = [cluster_rays(h, rays) for h in cs.hairs]
+    for mode, occl in (("closest", False), ("occluded", True)):
+        def run():
+            for h, cr in zip(cs.hairs, crs):
+                hk.hair_trace(h.packed, cr, occl)
+        ms = time_ms(run)
+        sts = [hk.hair_trace(h.packed, cr, occl, stats=True)[2]
+               for h, cr in zip(cs.hairs, crs)]
+        if any(st["dropped_pushes"] for st in sts):
+            raise AssertionError(f"{label}: dropped pushes")
+        bound = hair_bound([h.packed for h in cs.hairs], sts, n)
+        nodes = sum(st["node_visits"] for st in sts)
+        segs = sum(st["seg_tests"] for st in sts)
+        out[mode] = {"ms": ms, "bound": bound, "nodes": nodes / n,
+                     "segs": segs / n}
+        log(f"  hair {mode}, {label}, {n} rays, {len(cs.hairs)} launches: "
+            f"{ms:.3f} ms, {n / ms / 1e3:.1f} Mray/s; per ray "
+            f"{nodes / n:.2f} node visits, {segs / n:.2f} segment tests; "
+            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"(bytes {bound['bytes'] / 1e6:.1f} MB -> "
+            f"{bound['bytes_ms']:.4f} ms, operations "
+            f"{bound['flops'] / 1e9:.2f} GFLOP -> {bound['flops_ms']:.4f} ms)"
+            f": {100 * bound['bound_ms'] / ms:.1f} % of the kernel's time")
+    return out
+
+
+def check_curve_hits(label, hits, shape):
+    """Shapes, and the fields of curve hits: t finite where valid and
+    inf elsewhere (tfar = inf), Ng finite, u and v in [0, 1]."""
+    if hits.t.shape != shape or hits.ng.shape != shape + (3,):
+        raise AssertionError(f"{label}: wrong output shapes")
+    valid = hits.valid
+    if not (torch.isfinite(hits.t[valid]).all()
+            and torch.isfinite(hits.ng).all()
+            and (hits.u[valid] >= 0).all() and (hits.u[valid] <= 1).all()
+            and (hits.v[valid] >= 0).all() and (hits.v[valid] <= 1).all()
+            and torch.isinf(hits.t[~valid]).all()):
+        raise AssertionError(f"{label}: hit fields out of range")
+
+
+def hair_brute_check(label, cs, rays, n_rays):
+    """`n_rays` rays (evenly strided) against every sub-segment of every
+    hair cluster with the leaf's own arithmetic (hair_kernel's
+    cone/ribbon candidates, chunked), the closest t a ray: equal to the
+    t of the scene's hair fold (kernel B3) on all of them but at most
+    0.01 %, each exception printed."""
+    flat = flat_rays(rays)
+    n = flat.tnear.shape[0]
+    dev = flat.tnear.device
+    sel = torch.linspace(0, n - 1, n_rays, device=dev).long()
+    br = Rays(*(a[sel].contiguous() for a in flat))
+    best = br.tfar.clone()
+    for h in cs.hairs:
+        cr = cluster_rays(h, br)
+        o = tuple(cr.org[:, k:k + 1] for k in range(3))
+        dv = tuple(cr.dir[:, k:k + 1] for k in range(3))
+        test = (hk.ribbon_candidates if h.packed.flat
+                else hk.cone_candidates)
+        for s0 in range(0, h.packed.num_segments, 8192):
+            ok, th = test(o, dv, cr.tnear[:, None], *hk.seg_fields(
+                h.packed.seg[None, s0:s0 + 8192]))[:2]
+            th = torch.where(ok & (th < best[:, None]), th,
+                             torch.full_like(th, math.inf)).amin(dim=1)
+            best = torch.minimum(best, th)
+    fold = _fold_hair(cs, br, ett.miss_hits((n_rays,), br.tfar,
+                                            device=dev))
+    same = (best == fold.t) | (torch.isinf(best) & ~fold.valid)
+    bad = torch.nonzero(~same).squeeze(1).tolist()
+    for i in bad:
+        log(f"  {label}: brute force exception at ray {int(sel[i])}: "
+            f"brute t {float(best[i])!r}, kernel t {float(fold.t[i])!r}")
+    if len(bad) > 1e-4 * n_rays:
+        raise AssertionError(f"{label}: brute force differs on {len(bad)} "
+                             f"of {n_rays} rays")
+    nseg = sum(h.packed.num_segments for h in cs.hairs)
+    log(f"  {label}: brute force over all {nseg} sub-segments, {n_rays} "
+        f"rays: t equal on {n_rays - len(bad)} "
+        f"({int(torch.isfinite(best).sum())} hits)")
+
+
+def hair_full_checks(label, cs, rays):
+    """B3 against its plain version on the first 2^HAIR_PLAIN_LOG2 rays
+    of a full-size scene, every cluster, closest and any hit. Returns
+    (max abs err of t, plain ms closest, plain ms any hit), the plain
+    times summed over the clusters."""
+    nh = 1 << HAIR_PLAIN_LOG2
+    head = Rays(*(a[:nh].contiguous() for a in flat_rays(rays)))
+    err = ms_c = ms_o = 0.0
+    for k, h in enumerate(cs.hairs):
+        e, mc, mo, _st = compare_hair_plain(
+            h.packed, cluster_rays(h, head),
+            f"{label}, cluster {k} ({h.packed.num_segments} segments, "
+            f"{h.packed.num_nodes} nodes, {h.packed.depth} levels), the "
+            f"first 2^{HAIR_PLAIN_LOG2} rays")
+        err, ms_c, ms_o = max(err, e), ms_c + mc, ms_o + mo
+    return err, ms_c, ms_o
+
+
+def brute_user_check(label, entry, flat: Rays, hits, n_rays):
+    """`n_rays` rays against every segment of a segment soup through the
+    soup's own intersect function, the closest t a ray: the request's t
+    where its hit is on this soup."""
+    n = flat.tnear.shape[0]
+    sel = torch.linspace(0, n - 1, n_rays, device=flat.tnear.device).long()
+    br = Rays(*(a[sel].contiguous() for a in flat))
+    best = br.tfar.clone()
+    for p in range(entry.accel.num_prims):
+        ok, th, _u, _v, _ng = entry.intersect_fn(p, br, best)
+        best = torch.where(ok & (th < best) & (th > br.tnear), th, best)
+    t_k = hits.t.reshape(-1)[sel]
+    if not torch.equal(best, t_k):
+        raise AssertionError(f"{label}: brute force differs on "
+                             f"{int((best != t_k).sum())} of {n_rays} rays")
+    log(f"  {label}: brute force over all {entry.accel.num_prims} segments, "
+        f"{n_rays} rays: t equal ({int(torch.isfinite(best).sum())} hits)")
+
+
 def grid_triangles(tiles):
     """The two triangles of every cell of a grid-mode accel, with the
     kernel's diagonal and vertex order, as a triangle mesh."""
@@ -1100,6 +1445,7 @@ def main() -> int:
     # a build directory left by another machine is deleted, not trusted
     shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
+    # packet.cu holds kernels B2 and B3
     nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME, ck.KERNEL_NAME,
                           mk.KERNEL_NAME], verbose=True)
     nvcc_s = time.perf_counter() - t0
@@ -1122,6 +1468,8 @@ def main() -> int:
     log("[3d] motion-blur kernel vs plain version on small scenes")
     mb_small_err, mb_small_ulps, mbo_small_err = mb_small_scene_checks(
         dev.device)
+    log("[3e] hair kernel B3 vs plain version on small scenes")
+    hair_small_err = hair_small_scene_checks(dev.device)
     if args.quick:
         log("--quick: stopping before the full-size phases")
         return 0
@@ -1834,6 +2182,229 @@ def main() -> int:
         f"plain within {max(mb_small_ulps, mb_full_ulps)} ulp; "
         f"{sum(mb_ties)} ties against the static knots")
 
+    # -- 17. the hair path at full size: main-hair --------------------------
+    log(f"[17] hair path: main-hair, the hair_geometry tutorial's fur at "
+        f"{HAIR_FUR_STRANDS} strands (tessellation 6) over its ground plane")
+    fur_v, fur_i = hair_tutorial.make_fur(HAIR_FUR_STRANDS)
+    hs = ett.Scene(dev)
+    hs.attach(ett.TriangleMesh(hair_tutorial.PLANE_V, hair_tutorial.PLANE_T))
+    hs.attach(ett.BezierCurves(fur_v, fur_i, tessellation_rate=6))
+    prof.samples.clear()
+    t0 = time.perf_counter()
+    hcs = hs.commit()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    nseg = sum(h.packed.num_segments for h in hcs.hairs)
+    log(f"  commit {commit_s:.2f} s: " + ", ".join(
+        f"{k} {prof.stats(k)['avg']:.2f} s" for k in prof.samples))
+    log(f"  {nseg} round sub-segments in {len(hcs.hairs)} clusters "
+        f"(segments {[h.packed.num_segments for h in hcs.hairs]}, levels "
+        f"{[h.packed.depth for h in hcs.hairs]}); packed "
+        f"{sum(h.packed.device_bytes for h in hcs.hairs) / 1e6:.1f} MB, the "
+        f"committed scene {_scene_bytes(hcs) / 1e6:.1f} MB on the card")
+    if nseg != 1572864 or hcs.tris.num_prims != 2:
+        raise AssertionError("main-hair is not 1,572,864 sub-segments over a "
+                             "plane of 2 triangles")
+    hcam = hair_tutorial.make_app().camera
+    hframe = primary_rays(hcam, *FRAME, device=dev.device)
+    with Launches() as lc:
+        h_hair = hs.intersect(rays)
+        o_hair = hs.occluded(rays)
+        h_hfr = hs.intersect(hframe, coherent=True)
+        o_hfr = hs.occluded(hframe)
+        torch.cuda.synchronize()
+    lc.expect("main-hair: 2 intersect + 2 occluded requests", 0, 4)
+    lc.expect_hair("main-hair: 2 intersect + 2 occluded requests", hcs, 2, 2)
+    check_curve_hits("main-hair, incoherent", h_hair, (n,))
+    check_curve_hits("main-hair, frame", h_hfr, (FRAME[1], FRAME[0]))
+    if not (torch.equal(o_hair, h_hair.valid)
+            and torch.equal(o_hfr, h_hfr.valid)):
+        raise AssertionError("main-hair: occluded disagrees with intersect")
+    frac = float(h_hair.valid.float().mean())
+    frac_fr = float(h_hfr.valid.float().mean())
+    on_hair = float((h_hfr.geom_id == 1).float().mean())
+    if not (0.05 < frac < 0.8 and 0.2 < frac_fr and on_hair > 0.1):
+        raise AssertionError(f"main-hair: hit fractions {frac:.3f}, "
+                             f"{frac_fr:.3f} ({on_hair:.3f} on hair)")
+    log(f"  2^{LOG2_RAYS} rays: hit fraction {frac:.4f} "
+        f"({float((h_hair.geom_id == 1).float().mean()):.4f} on hair); "
+        f"{FRAME[0]}x{FRAME[1]} frame: {frac_fr:.4f} ({on_hair:.4f} on "
+        f"hair); occluded == valid; {len(hcs.hairs)} B3 launches a request")
+
+    # -- 18. the hair path: correctness at full size --------------------------
+    log("[18] hair path: correctness at full size")
+    hm_err, hm_plain_ms, hmo_plain_ms = hair_full_checks(
+        "main-hair", hcs, rays)
+    hair_brute_check("main-hair, incoherent", hcs, rays, HAIR_BRUTE_RAYS)
+    hair_brute_check("main-hair, frame", hcs, hframe, HAIR_BRUTE_RAYS)
+
+    # -- 19. hairball-flat ----------------------------------------------------
+    log(f"[19] hair path: hairball-flat, hair_ball({HAIR_BALL_CURVES}) as "
+        "flat curves, K = 8")
+    hb_v, hb_i = hair_ball(np.random.default_rng(HAIR_SEED),
+                           HAIR_BALL_CURVES)
+    fs = ett.Scene(dev)
+    fs.attach(ett.BezierCurves(hb_v, hb_i, tessellation_rate=8, flat=True))
+    prof.samples.clear()
+    t0 = time.perf_counter()
+    fcs = fs.commit()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    nseg = sum(h.packed.num_segments for h in fcs.hairs)
+    log(f"  commit {commit_s:.2f} s: " + ", ".join(
+        f"{k} {prof.stats(k)['avg']:.2f} s" for k in prof.samples))
+    log(f"  {nseg} ribbon sub-segments in {len(fcs.hairs)} clusters; packed "
+        f"{sum(h.packed.device_bytes for h in fcs.hairs) / 1e6:.1f} MB")
+    if nseg != 524288 or len(fcs.hairs) != 13:
+        raise AssertionError("hairball-flat is not 524,288 sub-segments in "
+                             "13 clusters")
+    with Launches() as lc:
+        h_ball = fs.intersect(rays)
+        o_ball = fs.occluded(rays)
+        torch.cuda.synchronize()
+    lc.expect_hair("hairball-flat: intersect + occluded", fcs, 1, 1)
+    check_curve_hits("hairball-flat", h_ball, (n,))
+    if not torch.equal(o_ball, h_ball.valid):
+        raise AssertionError("hairball-flat: occluded disagrees")
+    frac = float(h_ball.valid.float().mean())
+    if not 0.05 < frac < 0.9:
+        raise AssertionError(f"hairball-flat: hit fraction {frac:.3f}")
+    log(f"  2^{LOG2_RAYS} rays: hit fraction {frac:.4f}, occluded == valid; "
+        f"{lc.hair_ribbon} ribbon and {lc.hair_ribbon_occluded} any-hit "
+        f"launches for one intersect and one occluded request")
+    hb_err, hb_plain_ms, hbo_plain_ms = hair_full_checks(
+        "hairball-flat", fcs, rays)
+    hair_brute_check("hairball-flat", fcs, rays, HAIR_BRUTE_RAYS)
+
+    # -- 20. small curve scenes: segments, soups, motion blur -----------------
+    log("[20] curves on the torch-op walks: LineSegments, the segment soup, "
+        "BezierCurvesMB")
+    crng = np.random.default_rng(0x20)
+    seg_v = crng.uniform(-2, 2, (1024, 4)).astype(np.float32)
+    seg_v[:, 3] = 0.03
+    soups = []
+    ls = ett.Scene(dev)
+    ls.attach(ett.LineSegments(seg_v, np.arange(0, 1024, 2, dtype=np.int32)))
+    ls.commit()
+    soups.append(("LineSegments (512)", ls))
+    sv, si = hair_ball(crng, 100)
+    ss = ett.Scene(ett.Device("ignore_config_files=1,hair_accel=segment"))
+    ss.attach(ett.BezierCurves(sv, si, tessellation_rate=4))
+    ss.commit()
+    soups.append(("hair_ball(100) under hair_accel=segment (400)", ss))
+    srays = Rays(*(a[:SOUP_RAYS].contiguous() for a in rays))
+    for label, sc in soups:
+        with Launches() as lc:
+            hh = sc.intersect(srays)
+            oo = sc.occluded(srays)
+            torch.cuda.synchronize()
+        lc.expect(label, 0, 0)
+        check_curve_hits(label, hh, (SOUP_RAYS,))
+        if not torch.equal(oo, hh.valid) or not hh.valid.any():
+            raise AssertionError(f"{label}: occluded disagrees or no hit")
+        brute_user_check(label, sc.committed.users[0], srays, hh, 1024)
+    obb = ett.Scene(dev)
+    obb.attach(ett.BezierCurves(sv, si, tessellation_rate=4))
+    obb.commit()
+    h_obb = obb.intersect(srays)
+    flips = float((h_obb.valid != soups[1][1].intersect(srays).valid)
+                  .float().mean())
+    if flips >= 0.01:
+        raise AssertionError(f"OBB clusters and segment soup: {flips:.4f} "
+                             "of the hits differ")
+    log(f"  the same curves as OBB clusters through B3: hit masks differ on "
+        f"{flips:.4%} of the rays (caps against sub-segment joins)")
+    mv, mi = hair_ball(crng, 60)
+    shift = np.float32([0.4, -0.3, 0.2, 0.0])
+    ms = ett.Scene(dev)
+    ms.attach(ett.BezierCurvesMB(indices=mi, tessellation_rate=4,
+                                 timesteps=[mv, mv + shift, mv - shift]))
+    ms.commit()
+    mrays = Rays(*(a[:SOUP_RAYS].contiguous() for a in rays))
+    mtimes = torch.rand(SOUP_RAYS, generator=gen, device=dev.device)
+    hmc = ms.intersect(mrays, time=mtimes)
+    check_curve_hits("BezierCurvesMB", hmc, (SOUP_RAYS,))
+    acc = ms.committed.mb_curves
+    x = mtimes.clamp(0, 1) * float(acc.num_timesteps - 1)
+    sg = x.to(torch.int32).clamp(0, acc.num_timesteps - 2).long()
+    w = (x - sg.to(torch.float32))[:, None]
+    best = mrays.tfar.clone()
+    for p in range(acc.p0_ts.shape[1]):
+        a = acc.p0_ts[sg, p] * (1 - w) + acc.p0_ts[sg + 1, p] * w
+        b = acc.p1_ts[sg, p] * (1 - w) + acc.p1_ts[sg + 1, p] * w
+        ok, th, _s, _ng = _cone_hit(a[:, :3], b[:, :3], a[:, 3], b[:, 3],
+                                    Rays(mrays.org, mrays.dir, mrays.tnear,
+                                         best), best)
+        best = torch.where(ok, th, best)
+    if not (torch.equal(best, hmc.t) and hmc.valid.any()):
+        raise AssertionError("BezierCurvesMB: brute force over the lerped "
+                             "segments differs on "
+                             f"{int((best != hmc.t).sum())} rays")
+    log(f"  BezierCurvesMB (60 curves, 3 timesteps), {SOUP_RAYS} rays at "
+        f"random times: t equal to a brute force over the lerped segments "
+        f"({int(hmc.valid.sum())} hits)")
+    try:
+        ms.occluded(mrays)
+    except ett.RaytracerError as e:
+        log(f"  scene.occluded over motion-blur curves raises: {e}")
+    else:
+        raise AssertionError("scene.occluded over MB curves did not raise")
+
+    # -- 21. the hair_geometry and curve_geometry tutorials -------------------
+    log("[21] hair_geometry and curve_geometry tutorials")
+    for mod, frames_b2 in ((hair_tutorial, 2), (curve_tutorial, 1)):
+        app = mod.make_app()
+        app.default_size = (512, 512)
+        with Launches() as lc:
+            rc = app.run(["--benchmark", "1", "3",
+                          "-rtcore", "ignore_config_files=1"])
+            torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"{app.name}: returned {rc}")
+        lc.expect(f"{app.name}: 5 frames", 0, 5 * frames_b2)
+        lc.expect_hair(f"{app.name}: 5 frames",
+                       mod.build_scene(ett.Device("ignore_config_files=1"))
+                       ["cscene"], 5, 5 if frames_b2 == 2 else 0)
+        small_size = (64, 48)
+        imgs = {}
+        for where, dv in (("card", ett.Device("ignore_config_files=1")),
+                          ("cpu", ett.Device("ignore_config_files=1",
+                                             device="cpu"))):
+            img, _ = mod.render_frame(mod.build_scene(dv), app.camera,
+                                      small_size)
+            imgs[where] = img.cpu().numpy()
+        diff = np.abs(imgs["card"] - imgs["cpu"]).max(-1)
+        bad = float((diff > 1.5 / 255).mean())
+        lit = float((imgs["card"].max(-1) > 0).mean())
+        if not (np.isfinite(imgs["card"]).all() and bad <= 0.005
+                and lit > 0.3):
+            raise AssertionError(f"{app.name}: {bad:.4%} of the pixels "
+                                 f"differ from the CPU render, {lit:.2%} lit")
+        log(f"  {app.name} at 512x512 ran; {small_size[0]}x{small_size[1]}: "
+            f"{bad:.4%} of the pixels differ from this package's CPU render "
+            f"by more than 1.5/255 (budget 0.5 %), {lit:.2%} lit")
+
+    # -- 22. times of kernel B3 -------------------------------------------------
+    log("[22] hair kernel B3: times (CUDA events, median of 5 after a "
+        "warm-up, all clusters of a scene), counters and bounds")
+    hm_inc = hair_times(f"main-hair, 2^{LOG2_RAYS} incoherent", hcs, rays)
+    hair_times(f"main-hair, {FRAME[0]}x{FRAME[1]} frame", hcs, hframe)
+    hb_inc = hair_times(f"hairball-flat, 2^{LOG2_RAYS} incoherent", fcs,
+                        rays)
+    for label, fn in (
+            ("intersect request, main-hair, 2^21 rays",
+             lambda: hs.intersect(rays)),
+            ("occluded request, main-hair, 2^21 rays",
+             lambda: hs.occluded(rays)),
+            ("intersect request, main-hair, coherent frame",
+             lambda: hs.intersect(hframe, coherent=True)),
+            ("intersect request, hairball-flat, 2^21 rays",
+             lambda: fs.intersect(rays))):
+        log(f"  {label}: {time_ms(fn):.3f} ms")
+    log(f"  plain versions, 2^{HAIR_PLAIN_LOG2} rays, all clusters: "
+        f"main-hair {hm_plain_ms:.0f} + {hmo_plain_ms:.0f} ms, "
+        f"hairball-flat {hb_plain_ms:.0f} + {hbo_plain_ms:.0f} ms")
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to its first
     # 2^18 rays. packet: ms and bound_ms belong to the closest-hit launch
@@ -1844,7 +2415,10 @@ def main() -> int:
     # answer differs from the plain version's. mb and mb_occluded: ms and
     # bound_ms belong to the 2^21 incoherent rays at random times on
     # main-mb, plain_ms to their first 2^16 rays; mb_occluded's
-    # max_abs_err counts the rays whose answer differs
+    # max_abs_err counts the rays whose answer differs. hair_cone(_occluded)
+    # and hair_ribbon(_occluded): ms and bound_ms belong to one launch a
+    # cluster over the 2^21 incoherent rays on main-hair (cone) and
+    # hairball-flat (ribbon), plain_ms to their first 2^16 rays
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
@@ -1909,7 +2483,22 @@ def main() -> int:
         "bound_ms": mb_inc["occluded"]["bound"]["bound_ms"],
         "bound_by": mb_inc["occluded"]["bound"]["bound_by"],
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": f"hair_{leaf}{suffix}", "route": "cuda",
+        "source": "embree_tpu_torch/csrc/packet.cu",
+        "replaces": f"embree_tpu/traverse/pallas_hair.py:{line}",
+        "launches": Launches.totals[f"hair_{leaf}{suffix}"],
+        "max_abs_err": max(hair_small_err[leaf], full_err_),
+        "ms": res[mode]["ms"], "plain_ms": plain_,
+        "plain_rays": 1 << HAIR_PLAIN_LOG2,
+        "bound_ms": res[mode]["bound"]["bound_ms"],
+        "bound_by": res[mode]["bound"]["bound_by"],
+        "library_ms": None,
+    } for leaf, line, res, full_err_, plains in (
+        ("cone", 41, hm_inc, hm_err, (hm_plain_ms, hmo_plain_ms)),
+        ("ribbon", 79, hb_inc, hb_err, (hb_plain_ms, hbo_plain_ms)))
+        for suffix, mode, plain_ in (("", "closest", plains[0]),
+                                     ("_occluded", "occluded", plains[1]))]}
     for k in kernels["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} was never launched on "

@@ -11,10 +11,12 @@ queries through the per-ray treelet traversal (large incoherent
 batches), the BVH packet kernel (everything else on triangles) and the
 compressed-tile kernels, with ray masks and intersection filters;
 motion blur: triangle, quad and subdivision meshes with N >= 2 vertex
-timesteps, closest hit at a time a ray through the MB kernel; the
+timesteps, closest hit at a time a ray through the MB kernel; curves:
+line segments, round and flat Bezier and B-spline hair in strand-aligned
+OBB clusters through the hair kernel, motion-blur Bezier curves; the
 differentiable hit (`diff.hit`); the `triangle_geometry`,
-`displacement_geometry` and `motion_blur_geometry` tutorials
-(`render.tutorials`).
+`displacement_geometry`, `motion_blur_geometry`, `hair_geometry` and
+`curve_geometry` tutorials (`render.tutorials`).
 
 Quick start::
 
@@ -28,6 +30,8 @@ Quick start::
 from .core.config import State
 from .core.device import Device, Error, RaytracerError
 from .core.rayhit import Hits, INVALID_ID, Rays, make_rays, miss_hits
+from .scene.curves import (BezierCurves, BezierCurvesMB, BSplineCurves,
+                           LineSegments)
 from .scene.geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
                              SubdivMeshMB, TriangleMesh, TriangleMeshMB)
 from .scene.scene import (BuildQuality, CommittedScene, Scene, scene_intersect,
@@ -40,6 +44,7 @@ __all__ = [
     "Rays", "Hits", "make_rays", "miss_hits", "INVALID_ID",
     "Geometry", "TriangleMesh", "QuadMesh", "SubdivMesh",
     "TriangleMeshMB", "QuadMeshMB", "SubdivMeshMB",
+    "LineSegments", "BezierCurves", "BSplineCurves", "BezierCurvesMB",
     "Scene", "BuildQuality", "CommittedScene",
     "scene_intersect", "scene_occluded",
 ]

@@ -6,7 +6,9 @@ the JAX side; nothing here sees a JAX object) and returns this
 package's `CommittedScene` on the given device;
 `compressed_accel_from_reference` does the same for a compressed
 subdivision accel, so that both packages trace the same tiles, and
-`mb_accel_from_reference` for a motion-blur accel and its packed rows.
+`mb_accel_from_reference` for a motion-blur accel and its packed rows,
+`hair_clusters_from_reference` for the hair clusters of a curve
+geometry and `mb_curves_from_reference` for a motion-blur curve accel.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ from .build.bvh import BVH
 from .build.cbvh import CompressedTiles
 from .build.treelets import BLOCK_ROWS, TreeletScene
 from .scene.prims import TrianglePrims
-from .scene.scene import CommittedScene
+from .scene.scene import CommittedScene, HairEntry
 from .traverse.cbvh import CompressedAccel
-from .traverse.mb import MBAccel
+from .traverse.hair_kernel import WIDTH as HAIR_WIDTH, packed_from_arrays
+from .traverse.mb import MBAccel, MBCurves
 from .traverse.mb_kernel import PackedMB, pack_rows, packed_from_rows
 from .traverse.packet_kernel import PackedScene, tree_depth
 
@@ -179,3 +182,54 @@ def mb_accel_from_reference(arrays: dict, device):
                                         arrs["bvh.child"],
                                         arrs["bvh.count"], device)
     return accel, packed
+
+
+def hair_clusters_from_reference(arrays, device) -> tuple:
+    """The HairEntry tuple of a CommittedScene from the JAX package's
+    hair clusters.
+
+    `arrays` is a list with one dict a cluster, in fold order: `gid`
+    (int), `rot` (3, 3) f32 and `members` (M,) i32 (build/hair.py's
+    HairCluster), and the fields of its `HairClusterPallas`
+    (traverse/pallas_hair.py): `nodes` (N, 128) f32, `sdata` (rows, 128)
+    f32, `seg` (S, 8) f32, `payload` (S,) i32, `K`, `flat`."""
+    device = torch.device(device)
+    out = []
+    for c in arrays:
+        nodes = np.asarray(c["nodes"], np.float32)
+        W = HAIR_WIDTH
+        child = nodes[:, 6 * W:7 * W].astype(np.int64)
+        count = nodes[:, 7 * W:8 * W].astype(np.int64)
+        packed = packed_from_arrays(nodes, c["sdata"], c["seg"],
+                                    c["payload"], child, count, int(c["K"]),
+                                    bool(c["flat"]), device)
+        out.append(HairEntry(
+            gid=int(c["gid"]), rot=np.array(c["rot"], np.float32),
+            members=_tensor(c["members"], np.int32, device), packed=packed))
+    return tuple(out)
+
+
+def mb_curves_from_reference(arrays: dict, device) -> MBCurves:
+    """Build an MBCurves from the JAX package's (traverse/mb.py).
+
+    `arrays` holds numpy arrays under the field names: `bvh.lower`,
+    `bvh.upper` (M, W, 3) f32, `bvh.child`, `bvh.count` (M, W) i32,
+    `bvh.prim_order` (C,) i32; `lower_ts`, `upper_ts` (S, M, W, 3) f32;
+    `p0_ts`, `p1_ts` (S, C, 4) f32; `geom_id`, `prim_id` (C,) i32; `u0`,
+    `du` (C,) f32."""
+    device = torch.device(device)
+    f32, i32 = np.float32, np.int32
+    S, M, W, _ = np.asarray(arrays["lower_ts"]).shape
+    if np.asarray(arrays["bvh.child"]).shape != (M, W):
+        raise ValueError("bvh.* and lower_ts describe different trees")
+    bvh = BVH(lower=_tensor(arrays["bvh.lower"], f32, device),
+              upper=_tensor(arrays["bvh.upper"], f32, device),
+              child=_tensor(arrays["bvh.child"], i32, device),
+              count=_tensor(arrays["bvh.count"], i32, device),
+              prim_order=_tensor(arrays["bvh.prim_order"], i32, device))
+    return MBCurves(
+        bvh=bvh, **{k: _tensor(arrays[k], f32, device)
+                    for k in ("lower_ts", "upper_ts", "p0_ts", "p1_ts",
+                              "u0", "du")},
+        **{k: _tensor(arrays[k], i32, device)
+           for k in ("geom_id", "prim_id")})

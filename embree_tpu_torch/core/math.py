@@ -22,6 +22,16 @@ def dot(a, b):
         + a[..., 2] * b[..., 2]
 
 
+def rows_times(x, m):
+    """x @ m for rows x (..., 3) and a 3x3 numpy matrix m, each output
+    component summed left to right in float32 (no matmul library, so the
+    bits do not depend on the device)."""
+    m = np.asarray(m, np.float32)
+    x0, x1, x2 = x[..., 0], x[..., 1], x[..., 2]
+    return torch.stack([x0 * float(m[0, j]) + x1 * float(m[1, j])
+                        + x2 * float(m[2, j]) for j in range(3)], dim=-1)
+
+
 def cross(a, b):
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]

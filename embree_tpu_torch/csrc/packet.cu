@@ -43,8 +43,23 @@
 // shared-memory stack and a layout without the 384 unused bytes of a
 // node row are later work. PERF.md has the measured times and the bound.
 //
+// Kernel B3 (hair) is the same walk with curve leaves: the template's LEAF
+// argument selects the triangle leaf above (TRI, kernel B2) or a leaf row
+// of 16 segments x [p0 p1 r0 r1] tested with the swept-cone quadratic
+// (CONE) or the ribbon closest approach (RIBBON), the JAX package's
+// pallas_hair.py::_cone_leaf_test / _ribbon_leaf_test operation for
+// operation. Both accept `th < t` strictly, so an earlier segment keeps an
+// equal t. `hair_launch` is their entry; the TRI instantiations are the
+// code B2 had before B3 joined it. A hair cluster's BVH is built in the
+// cluster's rotated frame and the wrapper hands the rays in already
+// rotated. B3 is bounded the same way as B2 (bytes, and in practice the
+// latency of dependent loads); a cone test is ~60 float32 operations
+// with three divisions and a square root, a ribbon test ~55.
+//
 // Build with -fmad=false: the plain PyTorch version rounds every product
-// before it is added, and the two are held equal bit for bit.
+// before it is added, and the two are held equal bit for bit. Division and
+// square root stay IEEE (no --use_fast_math, -prec-div and -prec-sqrt at
+// their defaults), as torch's are.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -61,6 +76,11 @@ constexpr int MAX_DEPTH = 64;      // deepest tree the compiled stack serves
 constexpr int THREADS = 128;
 constexpr int SENT = INT_MIN;      // "child not pushed"
 
+constexpr int SEGS_PER_ROW = 16;   // hair leaf rows
+constexpr int SEG_FLOATS = 8;      // p0 p1 r0 r1
+
+enum Leaf { TRI = 0, CONE = 1, RIBBON = 2 };
+
 constexpr float ROBUST_MIN = static_cast<float>(1.0 - 3.0 / 8388608.0);
 constexpr float ROBUST_MAX = static_cast<float>(1.0 + 3.0 / 8388608.0);
 
@@ -74,7 +94,80 @@ __device__ __forceinline__ float rcp_safe(float a) {
   return (fabsf(a) < 1e-30f) ? (a < 0.0f ? -1e30f : 1e30f) : 1.0f / a;
 }
 
-template <int W, bool OCCLUDED, bool STATS>
+// Swept-cone segment (line_intersector.h cone; pallas_hair.py:41-76):
+// true where the ray hits with tnear < th < t; th is written either way.
+__device__ __forceinline__ bool cone_hit(const Ray& r, float4 a, float4 b,
+                                         float t, float& th) {
+  const float ax0 = a.x, ay0 = a.y, az0 = a.z;
+  const float ax1 = a.w, ay1 = b.x, az1 = b.y;
+  const float r0 = b.z, r1 = b.w;
+  const float vx = ax1 - ax0;
+  const float vy = ay1 - ay0;
+  const float vz = az1 - az0;
+  const float aa = fmaxf(vx * vx + vy * vy + vz * vz, 1e-20f);
+  const float rr = r1 - r0;
+  const float qx = r.ox - ax0;
+  const float qy = r.oy - ay0;
+  const float qz = r.oz - az0;
+  const float alpha = qx * vx + qy * vy + qz * vz;
+  const float beta = r.dx * vx + r.dy * vy + r.dz * vz;
+  const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float q0d = qx * r.dx + qy * r.dy + qz * r.dz;
+  const float q0q0 = qx * qx + qy * qy + qz * qz;
+  const float rb = rr * beta;
+  const float aa2 = aa * aa;
+  const float A = dd - beta * beta / aa - rb * rb / aa2;
+  const float B = 2.0f * q0d - 2.0f * alpha * beta / aa -
+                  2.0f * r0 * rr * beta / aa -
+                  2.0f * rr * rr * alpha * beta / aa2;
+  const float C = q0q0 - alpha * alpha / aa - r0 * r0 -
+                  2.0f * r0 * rr * alpha / aa - rr * rr * alpha * alpha / aa2;
+  const float disc = B * B - 4.0f * A * C;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float As = fabsf(A) < 1e-20f ? 1e-20f : A;
+  const float t0 = (-B - sq) / (2.0f * As);
+  const float t1 = (-B + sq) / (2.0f * As);
+  th = t0 > r.tnear ? t0 : t1;
+  const float s = (alpha + th * beta) / aa;
+  return disc >= 0.0f && th > r.tnear && th < t && s >= 0.0f && s <= 1.0f;
+}
+
+// Flat ribbon facing the ray (bezier_hair_intersector.h; pallas_hair.py:
+// 79-116): the 2D closest approach in a ray-centric frame.
+__device__ __forceinline__ bool ribbon_hit(const Ray& r, float4 a, float4 b,
+                                           float t, float& th) {
+  const float dd = fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f);
+  const float ax = a.x - r.ox;
+  const float ay = a.y - r.oy;
+  const float az = a.z - r.oz;
+  const float bx = a.w - r.ox;
+  const float by = b.x - r.oy;
+  const float bz = b.y - r.oz;
+  const float za = (ax * r.dx + ay * r.dy + az * r.dz) / dd;
+  const float zb = (bx * r.dx + by * r.dy + bz * r.dz) / dd;
+  const float apx = ax - za * r.dx;
+  const float apy = ay - za * r.dy;
+  const float apz = az - za * r.dz;
+  const float bpx = bx - zb * r.dx;
+  const float bpy = by - zb * r.dy;
+  const float bpz = bz - zb * r.dz;
+  const float abx = bpx - apx;
+  const float aby = bpy - apy;
+  const float abz = bpz - apz;
+  const float denom = fmaxf(abx * abx + aby * aby + abz * abz, 1e-20f);
+  const float s = fminf(
+      fmaxf(-(apx * abx + apy * aby + apz * abz) / denom, 0.0f), 1.0f);
+  const float px = apx + s * abx;
+  const float py = apy + s * aby;
+  const float pz = apz + s * abz;
+  const float dist2 = px * px + py * py + pz * pz;
+  const float oms = 1.0f - s;
+  const float rad = b.z * oms + b.w * s;
+  th = za * oms + zb * s;
+  return dist2 <= rad * rad && th > r.tnear && th < t;
+}
+
+template <int W, bool OCCLUDED, bool STATS, int LEAF>
 __global__ void __launch_bounds__(THREADS)
 packet_kernel(const float* __restrict__ nodes,     // (M, 128)
               const float* __restrict__ tdata,     // (rows, 128)
@@ -197,6 +290,41 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
           }
         }
       }
+    } else if constexpr (LEAF != TRI) {
+      // ---- hair leaf: segments start .. start + cnt - 1 in BVH order
+      const int v = -ref - 1;
+      const int start = v >> 4;
+      const int cnt = min(v & 15, MAX_LEAF);
+      if (STATS) n_leaves += 1;
+      for (int k = 0; k < cnt; ++k) {
+        const int p = start + k;
+        const int srow = p / SEGS_PER_ROW;
+        if (STATS) {
+          n_tris += 1;
+          row_touched[srow] = 1;
+        }
+        const float4* g = reinterpret_cast<const float4*>(
+            tdata + static_cast<size_t>(srow) * ROW +
+            (p - srow * SEGS_PER_ROW) * SEG_FLOATS);
+        const float4 a = __ldg(g + 0);
+        const float4 b = __ldg(g + 1);
+        float th;
+        bool ok;
+        if constexpr (LEAF == CONE) {
+          ok = cone_hit(r, a, b, t, th);
+        } else {
+          ok = ribbon_hit(r, a, b, t, th);
+        }
+        if (ok) {
+          if (OCCLUDED) {
+            t = -INFINITY;
+            sp = 0;
+            break;
+          }
+          t = th;
+          prim = p;
+        }
+      }
     } else {
       // ---- leaf: triangles start .. start + cnt - 1 in BVH order
       const int v = -ref - 1;
@@ -261,7 +389,7 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
   }
 }
 
-template <int W, bool OCCLUDED, bool STATS>
+template <int W, bool OCCLUDED, bool STATS, int LEAF>
 void launch(const float* nodes, const float* tdata, const int* prim_mask,
             const int* ray_mask, int cull, const float* org, const float* dir,
             const float* tnear, const float* tfar, long long num_rays,
@@ -269,7 +397,7 @@ void launch(const float* nodes, const float* tdata, const int* prim_mask,
             int* node_touched, int* row_touched, cudaStream_t stream) {
   const unsigned grid =
       static_cast<unsigned>((num_rays + THREADS - 1) / THREADS);
-  packet_kernel<W, OCCLUDED, STATS><<<grid, THREADS, 0, stream>>>(
+  packet_kernel<W, OCCLUDED, STATS, LEAF><<<grid, THREADS, 0, stream>>>(
       nodes, tdata, prim_mask, ray_mask, cull, org, dir, tnear, tfar,
       num_rays, t_out, prim_out, stats, node_touched, row_touched);
 }
@@ -297,9 +425,9 @@ extern "C" int packet_launch(const float* nodes, const float* tdata,
                       (stats != nullptr ? 1 : 0);
 #define PACKET_CASE(V, W, O, S)                                              \
   case V:                                                                    \
-    launch<W, O, S>(nodes, tdata, prim_mask, ray_mask, cull, org, dir,       \
-                    tnear, tfar, num_rays, t_out, prim_out, stats,           \
-                    node_touched, row_touched, s);                           \
+    launch<W, O, S, TRI>(nodes, tdata, prim_mask, ray_mask, cull, org, dir,  \
+                         tnear, tfar, num_rays, t_out, prim_out, stats,      \
+                         node_touched, row_touched, s);                      \
     break;
   switch (variant) {
     PACKET_CASE(0, 4, false, false)
@@ -312,6 +440,43 @@ extern "C" int packet_launch(const float* nodes, const float* tdata,
     PACKET_CASE(7, 8, true, true)
   }
 #undef PACKET_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel B3: one hair cluster's BVH4 (node rows as above) over segment rows
+// `sdata` (16 x [p0 p1 r0 r1] a row, one zero pad row), rays in the
+// cluster's frame. `flat` selects the ribbon leaf over the cone leaf.
+// `slot_out` gets the BVH slot of the winning segment (-1 on a miss and for
+// any-hit rays). Launches on `stream`, returns cudaGetLastError(); `stats`,
+// `node_touched` and `row_touched` as for packet_launch (the counters are
+// node visits, segment tests, dropped pushes, leaf visits).
+extern "C" int hair_launch(const float* nodes, const float* sdata,
+                           const float* org, const float* dir,
+                           const float* tnear, const float* tfar,
+                           long long num_rays, float* t_out, int* slot_out,
+                           int flat, int occluded, unsigned long long* stats,
+                           int* node_touched, int* row_touched, void* stream) {
+  if (num_rays <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int variant = (flat ? 4 : 0) | (occluded ? 2 : 0) |
+                      (stats != nullptr ? 1 : 0);
+#define HAIR_CASE(V, L, O, S)                                                \
+  case V:                                                                    \
+    launch<4, O, S, L>(nodes, sdata, nullptr, nullptr, 0, org, dir, tnear,   \
+                       tfar, num_rays, t_out, slot_out, stats, node_touched, \
+                       row_touched, s);                                      \
+    break;
+  switch (variant) {
+    HAIR_CASE(0, CONE, false, false)
+    HAIR_CASE(1, CONE, false, true)
+    HAIR_CASE(2, CONE, true, false)
+    HAIR_CASE(3, CONE, true, true)
+    HAIR_CASE(4, RIBBON, false, false)
+    HAIR_CASE(5, RIBBON, false, true)
+    HAIR_CASE(6, RIBBON, true, false)
+    HAIR_CASE(7, RIBBON, true, true)
+  }
+#undef HAIR_CASE
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 """Scene: geometry container + commit orchestration.
 
 Counterpart of embree_tpu/scene/scene.py for triangle, quad and
-subdivision meshes, static and with motion blur. `Scene` is the mutable
-host container (attach/detach); `commit()` flattens the enabled
-triangle and quad meshes into one triangle soup, builds on the host and
-publishes an immutable `CommittedScene` of tensors on the Device's
+subdivision meshes, static and with motion blur, and for curves (line
+segments, Bezier and B-spline hair, motion-blur Bezier curves). `Scene`
+is the mutable host container (attach/detach); `commit()` flattens the
+enabled triangle and quad meshes into one triangle soup, builds on the
+host and publishes an immutable `CommittedScene` of tensors on the Device's
 device:
 
   * always: the binned-SAH wide BVH (build/sah.py; BVH4, or BVH8 when
@@ -25,7 +26,16 @@ device:
     timesteps) go into one motion-blur accel (`_build_mb`: a common knot
     grid, one SAH topology refit at every knot, a temporal-split
     competition that may put time-gated subtrees under an MB4D root),
-    packed for the MB kernel (traverse/mb_kernel.py).
+    packed for the MB kernel (traverse/mb_kernel.py);
+  * `BezierCurves` and `BSplineCurves` under `hair_accel=default|obb|
+    bvh4obb.bezier1v` become strand-aligned OBB clusters (build/hair.py),
+    each tessellated into sub-segments, built and packed for kernel B3
+    (traverse/hair_kernel.py: ribbon leaves for flat curves, swept cones
+    for round ones); `LineSegments`, and curves under any other
+    `hair_accel`, become segment soups walked in torch ops
+    (traverse/user.py, the swept cone with end caps of scene/curves.py);
+    `BezierCurvesMB` go into one motion-blur curve accel
+    (`_build_mb_curves`, walked by traverse/mb.py::intersect_mb_curves).
 
 Dispatch of `scene_intersect` / `scene_occluded`, the JAX package's:
 the per-ray treelet traversal (traverse/rowtrace2.py) serves a batch
@@ -42,7 +52,14 @@ tile; occlusion is the OR of both. The packed accel goes through the
 compressed kernels, an unpacked one (`full`, `non`, `mid`) through the
 torch-op traversal (traverse/cbvh.py). The motion-blur accel folds in
 last, at each ray's time (0 when `time` is None), starting from the t
-that the other accels left. Ray masks act on triangles only.
+that the other accels left. The curve accels fold in after it, in the
+JAX package's order: motion-blur curves (at each ray's time), the hair
+clusters (one kernel B3 launch a cluster, rays rotated into the
+cluster's frame, starting from the running t), the segment soups. A
+curve hit carries gprim = -1. Occlusion ORs kernel B3's any-hit variant
+and the segment soups into the answer; the JAX package runs its
+closest-hit walk there, which gives the same booleans. Ray masks act on
+triangles only.
 The JAX package stream-sorts
 large incoherent batches (traverse/stream.py) before its packet kernel;
 on this card the sort costs more than it saves (PERF.md), so no path
@@ -51,8 +68,8 @@ here sorts.
 What needs a module which is not ported yet raises
 `RaytracerError(INVALID_OPERATION, "not ported yet: ...")`:
 BuildQuality.LOW / REFIT, per-edge tessellation levels, occlusion over
-motion-blur geometry, and the geometry types other than the six above
-(curves and hair, motion-blur curves, instances, user geometry).
+motion-blur geometry (meshes and curves), and the geometry types other
+than the ten above (instances, user geometry).
 """
 from __future__ import annotations
 
@@ -66,10 +83,12 @@ import numpy as np
 import torch
 
 from ..build.bvh import BVH, sah_cost
+from ..build.hair import cluster_curves
 from ..build.refit import plan_refit, refit
 from ..build.sah import BuildSettings, build_sah
 from ..build.treelets import TreeletScene, build_treelet_scene, choose_fan
 from ..core.device import Device, Error, RaytracerError
+from ..core.math import rows_times
 from ..core.profile import global_profiler, profile_phase, trace
 from ..core.rayhit import Hits, Rays, miss_hits
 from ..subdiv.tessellate import tessellate_mesh_to_triangles
@@ -79,12 +98,17 @@ from ..traverse.cbvh_kernel import (PackedCompressed,
                                     intersect_compressed_kernel,
                                     occluded_compressed_kernel,
                                     pack_compressed)
-from ..traverse.mb import MBAccel, ray_times
+from ..traverse.hair_kernel import (PackedHair, intersect_hair_kernel,
+                                    occluded_hair_kernel, pack_hair_cluster)
+from ..traverse.mb import MBAccel, MBCurves, intersect_mb_curves, ray_times
 from ..traverse.mb_kernel import PackedMB, intersect_mb_kernel, pack_mb
 from ..traverse.packet import _finalize_hits
 from ..traverse.packet_kernel import (PackedScene, intersect_packet_kernel_raw,
                                       occluded_packet_kernel, pack_scene)
 from ..traverse.rowtrace2 import intersect_rowtrace2
+from ..traverse.user import UserAccel, intersect_user
+from .curves import (BezierCurves, BezierCurvesMB, BSplineCurves,
+                     LineSegments, make_segment_intersector, segment_bounds)
 from .geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
                        SubdivMeshMB, TriangleMesh, TriangleMeshMB)
 from .subdiv_accel import build_compressed_accel
@@ -96,6 +120,9 @@ from .prims import TrianglePrims, empty_triangle_prims, prim_bounds_np
 ROWTRACE_MIN_PRIMS = 100_000
 ROWTRACE_MIN_RAYS = 65_536
 FILTER_MAX_ROUNDS = 1 << 16
+# hair_accel values that select the strand-aligned OBB clusters; any other
+# value puts curves into the segment soup
+HAIR_OBB_ACCELS = ("default", "obb", "bvh4obb.bezier1v")
 
 # createSubdivAccel mode select (scene.cpp:491-510)
 SUBDIV_MODES = {
@@ -120,6 +147,26 @@ class BuildQuality(enum.IntEnum):
     REFIT = 3    # not ported yet
 
 
+class HairEntry(NamedTuple):
+    """One strand-aligned hair cluster (build/hair.py) of one geometry."""
+
+    gid: int
+    rot: np.ndarray           # (3, 3) world -> cluster frame (x @ rot)
+    members: torch.Tensor     # (M,) i32 cluster member -> curve index
+    packed: PackedHair        # kernel B3's accel, in the cluster frame
+
+
+class UserEntry(NamedTuple):
+    """One segment-soup accel (LineSegments, or curves outside the OBB
+    accel) walked by traverse/user.py."""
+
+    gid: int
+    accel: UserAccel
+    intersect_fn: Callable    # scene/curves.py::make_segment_intersector
+    prim_map: torch.Tensor    # (S,) i32 segment -> prim id
+    device_bytes: int
+
+
 class CommittedScene(NamedTuple):
     """Immutable device-side scene (the accel + leaf data)."""
 
@@ -138,6 +185,9 @@ class CommittedScene(NamedTuple):
     compressed_kernel: Optional[PackedCompressed] = None  # its packed form
     mb: Optional[MBAccel] = None              # motion-blur accel
     mb_kernel: Optional[PackedMB] = None      # its packed form
+    hairs: tuple = ()                         # HairEntry a cluster
+    users: tuple = ()                         # UserEntry a segment soup
+    mb_curves: Optional[MBCurves] = None      # motion-blur curve accel
 
     @property
     def device(self) -> torch.device:
@@ -239,6 +289,9 @@ class Scene:
         any_patch_uv = False  # an eagerly tessellated SubdivMesh is present
         subdiv_compressed = []
         mb_geoms = []
+        mb_curve_geoms = []
+        hairs, users = [], []
+        curve_lo, curve_hi = [], []   # bounds of the curves, for world bounds
         with profile_phase("scene.flatten"):
             for gid, g in sorted(self.geometries.items()):
                 if not g.enabled:
@@ -278,6 +331,18 @@ class Scene:
                 elif isinstance(g, (TriangleMeshMB, QuadMeshMB,
                                     SubdivMeshMB)):
                     mb_geoms.append((gid, g))
+                elif isinstance(g, BezierCurvesMB):
+                    mb_curve_geoms.append((gid, g))
+                elif (isinstance(g, (BezierCurves, BSplineCurves))
+                      and self.device.state.hair_accel in HAIR_OBB_ACCELS):
+                    with profile_phase("scene.build_hair"):
+                        hairs += self._hair_clusters(gid, g, dev, curve_lo,
+                                                     curve_hi)
+                elif isinstance(g, (LineSegments, BezierCurves,
+                                    BSplineCurves)):
+                    with profile_phase("scene.build_segments"):
+                        users.append(self._segment_accel(gid, g, dev,
+                                                         curve_lo, curve_hi))
                 else:
                     raise _not_ported(f"geometry type {type(g).__name__}")
 
@@ -369,6 +434,20 @@ class Scene:
                 hi_all = np.maximum(hi_all, mhi)
             else:
                 lo_all, hi_all = mlo, mhi
+        # motion-blur curves (per-knot refit bounds; traverse/mb.py)
+        mb_curves = None
+        if mb_curve_geoms:
+            with profile_phase("scene.build_mb_curves"):
+                mb_curves = self._build_mb_curves(mb_curve_geoms, dev,
+                                                  curve_lo, curve_hi)
+        if curve_lo:
+            clo = np.min(curve_lo, axis=0)
+            chi = np.max(curve_hi, axis=0)
+            if nprims or subdiv_compressed or mb_geoms:
+                lo_all = np.minimum(lo_all, clo)
+                hi_all = np.maximum(hi_all, chi)
+            else:
+                lo_all, hi_all = clo, chi
         tri_patch_uv = None
         with profile_phase("scene.upload"):
             bvh = bvh_np.to_device(dev)
@@ -392,7 +471,8 @@ class Scene:
             world_upper=torch.from_numpy(hi_all.astype(np.float32)).to(dev),
             backface_cull=bool(self.device.state.backface_culling),
             tri_patch_uv=tri_patch_uv, compressed=compressed,
-            compressed_kernel=compressed_kernel, mb=mb, mb_kernel=mb_kernel)
+            compressed_kernel=compressed_kernel, mb=mb, mb_kernel=mb_kernel,
+            hairs=tuple(hairs), users=tuple(users), mb_curves=mb_curves)
         self.device.memory_monitor(_scene_bytes(self.committed), True)
         self.build_time_s = time.perf_counter() - t0
         self._progress(1.0)
@@ -400,6 +480,109 @@ class Scene:
             self.print_statistics()
             global_profiler().print("  profile ")
         return self.committed
+
+    def _hair_clusters(self, gid, g, dev, curve_lo, curve_hi):
+        """Strand-aligned OBB clusters of one Bezier or B-spline curve
+        geometry (the JAX package's first-class hair accel): each
+        cluster's curves, rotated into its frame, tessellated into K
+        sub-segments and packed for kernel B3 (ribbon leaves for flat
+        curves, swept cones for round ones)."""
+        cps, radii = g.to_bezier()
+        curve_lo.append((cps.min(1) - radii.max(1, keepdims=True)).min(0))
+        curve_hi.append((cps.max(1) + radii.max(1, keepdims=True)).max(0))
+        K = max(2, int(g.tessellation_rate))
+        out = []
+        for rot, members in cluster_curves(cps):
+            packed = pack_hair_cluster(
+                cps[members] @ rot, radii[members], K=K, flat=g.flat,
+                device=dev, builder=self.device.state.builder)
+            out.append(HairEntry(gid, rot, torch.from_numpy(members).to(dev),
+                                 packed))
+        return out
+
+    def _segment_accel(self, gid, g, dev, curve_lo, curve_hi) -> UserEntry:
+        """The segment soup of a curve geometry: round segments under a
+        SAH BVH, walked by traverse/user.py with the swept-cone and cap
+        test of scene/curves.py."""
+        p0, p1, prim, u0, du = g.to_segments()
+        blo, bhi = segment_bounds(p0, p1)
+        curve_lo.append(blo.min(0))
+        curve_hi.append(bhi.max(0))
+        ub = build_sah(blo, bhi, BuildSettings(),
+                       backend=self.device.state.builder)
+        fn, prim_map = make_segment_intersector(p0, p1, prim, u0, du, dev)
+        return UserEntry(gid, UserAccel(ub.to_device(dev), gid, p0.shape[0]),
+                         fn, torch.from_numpy(prim_map).to(dev),
+                         p0.nbytes + p1.nbytes + u0.nbytes + du.nbytes
+                         + prim_map.nbytes)
+
+    def _build_mb_curves(self, mb_curve_geoms, dev, curve_lo,
+                         curve_hi) -> MBCurves:
+        """MB curve accel (bvh_builder_msmblur_hair analog): segment soups
+        resampled on the common knot grid, one SAH topology over their
+        union bounds, refit at every knot; the JAX package's build,
+        array for array."""
+        S = self._knot_count(mb_curve_geoms)
+        knots = np.linspace(0.0, 1.0, S)
+        per_ts = [[] for _ in range(S)]
+        geoms, prims, u0s, dus = [], [], [], []
+        for gid, g in mb_curve_geoms:
+            soups = g.timestep_segments()
+            Sg = len(soups)
+            prims.append(soups[0][2])
+            u0s.append(soups[0][3])
+            dus.append(soups[0][4])
+            geoms.append(np.full(soups[0][0].shape[0], gid, np.int32))
+            for s, tk in enumerate(knots):
+                x = tk * (Sg - 1)
+                a = int(np.clip(np.floor(x), 0, Sg - 2))
+                w = np.float32(x - a)
+                per_ts[s].append(tuple(
+                    (1 - w) * soups[a][k] + w * soups[a + 1][k]
+                    for k in range(2)))
+        p0_ts = np.stack([np.concatenate([t[0] for t in ts])
+                          for ts in per_ts])          # (S, C, 4)
+        p1_ts = np.stack([np.concatenate([t[1] for t in ts])
+                          for ts in per_ts])
+        los, his = zip(*(segment_bounds(p0_ts[s], p1_ts[s])
+                         for s in range(S)))
+        curve_lo.append(np.min(los, axis=(0, 1)))
+        curve_hi.append(np.max(his, axis=(0, 1)))
+        bvh_u = build_sah(np.minimum.reduce(los), np.maximum.reduce(his),
+                          BuildSettings(),
+                          backend=self.device.state.builder).to_device(dev)
+        sched = plan_refit(bvh_u)
+        boxes = [refit(bvh_u, sched, torch.from_numpy(los[s]).to(dev),
+                       torch.from_numpy(his[s]).to(dev)) for s in range(S)]
+
+        def up(a, dtype=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        return MBCurves(
+            bvh=bvh_u._replace(lower=boxes[0].lower, upper=boxes[0].upper),
+            lower_ts=torch.stack([b.lower for b in boxes]),
+            upper_ts=torch.stack([b.upper for b in boxes]),
+            p0_ts=up(p0_ts), p1_ts=up(p1_ts),
+            geom_id=up(np.concatenate(geoms), np.int32),
+            prim_id=up(np.concatenate(prims), np.int32),
+            u0=up(np.concatenate(u0s)), du=up(np.concatenate(dus)))
+
+    def _knot_count(self, mb_geoms) -> int:
+        """Knots of the common grid of MB geometries: one more than the LCM
+        of their segment counts, so that every geometry's own knots land on
+        common knots (the piecewise-linear resampling is then exact);
+        capped at 65, beyond which the motion between knots is chorded."""
+        seg_counts = [max(1, len(g.vertex_timesteps) - 1)
+                      for _gid, g in mb_geoms]
+        L = 1
+        for c in seg_counts:
+            L = L * c // math.gcd(L, c)
+        if L + 1 > 65:
+            if self.device.state.verbose >= 1:
+                print(f"embree_tpu_torch: MB knot LCM {L + 1} exceeds cap; "
+                      f"non-aligned motion will be chorded")
+            L = max(seg_counts)
+        return L + 1
 
     def _mb_timestep_soups(self, g):
         """Per-timestep (v0, v1, v2, prim[, flip]) triangle soups of one
@@ -429,21 +612,7 @@ class Scene:
         SAH build over all-knot union bounds, then a refit at every knot
         — exact linear bounds per uniform segment — and a temporal-split
         competition; the JAX package's build, array for array."""
-        # Common knot grid: LCM of the per-geometry segment counts, so
-        # that every geometry's own knots land on common knots (the
-        # piecewise-linear resampling is then exact). Capped; beyond the
-        # cap the motion between knots is chorded.
-        seg_counts = [max(1, len(g.vertex_timesteps) - 1)
-                      for _gid, g in mb_geoms]
-        L = 1
-        for c in seg_counts:
-            L = L * c // math.gcd(L, c)
-        if L + 1 > 65:
-            if self.device.state.verbose >= 1:
-                print(f"embree_tpu_torch: MB knot LCM {L + 1} exceeds cap; "
-                      f"non-aligned motion will be chorded")
-            L = max(seg_counts)
-        S = L + 1
+        S = self._knot_count(mb_geoms)
         knots = np.linspace(0.0, 1.0, S)
 
         with profile_phase("scene.mb_soups"):
@@ -642,6 +811,13 @@ class Scene:
               + (f", {cs.mb.v0_ts.shape[1]} motion-blur triangles at "
                  f"{cs.mb.num_timesteps} knots in {cs.mb.bvh.num_nodes} "
                  f"nodes" if cs.mb is not None else "")
+              + (f", {len(cs.hairs)} hair clusters of "
+                 f"{sum(h.packed.num_segments for h in cs.hairs)} "
+                 f"sub-segments" if cs.hairs else "")
+              + (f", {sum(u.accel.num_prims for u in cs.users)} curve "
+                 f"segments" if cs.users else "")
+              + (f", {cs.mb_curves.p0_ts.shape[1]} motion-blur curve "
+                 f"segments" if cs.mb_curves is not None else "")
               + f", build {self.build_time_s * 1e3:.1f} ms")
 
 
@@ -665,6 +841,14 @@ def _scene_bytes(cs: CommittedScene) -> int:
                  for a in list(cs.mb.bvh) + list(cs.mb[1:])
                  if a is not None)
         n += cs.mb_kernel.device_bytes
+    for h in cs.hairs:
+        n += h.packed.device_bytes + h.members.numel() * 4
+    for u in cs.users:
+        n += u.device_bytes + sum(a.numel() * a.element_size()
+                                  for a in u.accel.bvh)
+    if cs.mb_curves is not None:
+        n += sum(a.numel() * a.element_size()
+                 for a in list(cs.mb_curves.bvh) + list(cs.mb_curves[1:]))
     return n
 
 
@@ -736,11 +920,57 @@ def _fold_mb(cs: CommittedScene, flat: Rays, hits: Hits, tm) -> Hits:
         for a, b in zip(hm, hits)))
 
 
+def _fold(hits: Hits, use, t, u, v, ng, prim_id, geom_id) -> Hits:
+    """The AccelN min-combine of a curve accel's flat hits (gprim and
+    inst_id -1) where `use`."""
+    return Hits(
+        t=torch.where(use, t, hits.t), u=torch.where(use, u, hits.u),
+        v=torch.where(use, v, hits.v),
+        ng=torch.where(use[:, None], ng, hits.ng),
+        prim_id=torch.where(use, prim_id, hits.prim_id),
+        geom_id=torch.where(use, geom_id, hits.geom_id),
+        gprim=torch.where(use, -1, hits.gprim),
+        inst_id=torch.where(use, -1, hits.inst_id))
+
+
+def _fold_hair(cs: CommittedScene, flat: Rays, hits: Hits) -> Hits:
+    """The AccelN step for the hair clusters: each cluster's kernel B3
+    walk, rays rotated into its frame, starts from the running t; Ng is
+    rotated back (x @ rot.T)."""
+    for h in cs.hairs:
+        t, u, v, ng, m, hitm = intersect_hair_kernel(
+            h.packed, rows_times(flat.org, h.rot),
+            rows_times(flat.dir, h.rot), flat.tnear, hits.t.contiguous())
+        use = hitm & (t < hits.t)
+        hits = _fold(hits, use, t, u, v, rows_times(ng, h.rot.T),
+                     h.members[m.clamp_min(0).long()], h.gid)
+    return hits
+
+
+def _fold_curves(cs: CommittedScene, flat: Rays, hits: Hits, tm) -> Hits:
+    """The curve accels after the motion-blur accel, in the JAX
+    package's order: motion-blur curves at the rays' times, the hair
+    clusters, the segment soups."""
+    if cs.mb_curves is not None:
+        t, u, v, ng, prim, geom, hitm = intersect_mb_curves(
+            cs.mb_curves, Rays(flat.org, flat.dir, flat.tnear, hits.t), tm)
+        hits = _fold(hits, hitm, t, u, v, ng, prim, geom)
+    if cs.hairs:
+        hits = _fold_hair(cs, flat, hits)
+    for e in cs.users:
+        t, u, v, ng, prim, hitm = intersect_user(
+            e.accel, e.intersect_fn,
+            Rays(flat.org, flat.dir, flat.tnear, hits.t), hits.t)
+        hits = _fold(hits, hitm, t, u, v, ng,
+                     e.prim_map[prim.clamp_min(0).long()], e.gid)
+    return hits
+
+
 def _closest_flat(cs: CommittedScene, flat: Rays, coherent: bool,
                   ray_mask, tm) -> Hits:
     """Unfiltered closest hit of a flat batch: the triangles through the
     kernel that the dispatch rule names, then the compressed accel, then
-    the motion-blur accel at the rays' times `tm`."""
+    the motion-blur accel at the rays' times `tm`, then the curves."""
     if cs.tris.num_prims == 0:
         hits = miss_hits(flat.batch_shape, flat.tfar, device=cs.device)
     else:
@@ -755,7 +985,7 @@ def _closest_flat(cs: CommittedScene, flat: Rays, coherent: bool,
         hits = _fold_compressed(cs, flat, hits)
     if cs.mb is not None:
         hits = _fold_mb(cs, flat, hits, tm)
-    return hits
+    return _fold_curves(cs, flat, hits, tm)
 
 
 def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
@@ -786,7 +1016,11 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
     prev_prim = torch.full((R,), -2, dtype=torch.int32, device=dev)
     prev_t = torch.full((R,), -math.inf, dtype=torch.float32, device=dev)
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
-    slabs = cs.compressed is not None and cs.compressed.tiles.mode != "grid"
+    # the geometries of a compressed accel in a box or leaf mode: their
+    # hits, like curve hits, carry gprim = -1
+    slab_gids = (torch.unique(cs.compressed.tiles.geom_id)
+                 if cs.compressed is not None
+                 and cs.compressed.tiles.mode != "grid" else None)
     for _ in range(FILTER_MAX_ROUNDS if R else 0):
         tf_eff = torch.where(done, -inf, tf)
         h = _closest_flat(cs, Rays(org, d, tnear_cur, tf_eff), coherent,
@@ -808,10 +1042,10 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
         tnear_cur = torch.where(rej, adv, tnear_cur)
         prev_prim = torch.where(rej, h.gprim, prev_prim)
         prev_t = torch.where(rej, h.t, prev_t)
-        # a compressed hit carries gprim = -1
-        open_, stuck = torch.stack(
-            [(~done).any(), (rej & (h.gprim < 0)).any()]).tolist()
-        if slabs and stuck:
+        slab_rej = (rej & (h.gprim < 0) & torch.isin(h.geom_id, slab_gids)
+                    if slab_gids is not None else torch.zeros_like(rej))
+        open_, stuck = torch.stack([(~done).any(), slab_rej.any()]).tolist()
+        if stuck:
             raise _not_ported(
                 "an intersection filter that rejects a hit of a "
                 f"bvh4.compressed.{cs.compressed.tiles.mode} accel")
@@ -831,12 +1065,14 @@ def scene_intersect(cs: CommittedScene, rays: Rays, isa: str = "default",
     shutter; only motion-blur geometry reads it. `isa` is accepted and
     selects nothing."""
     shape = rays.batch_shape
-    if cs.tris.num_prims == 0 and cs.compressed is None and cs.mb is None:
+    if (cs.tris.num_prims == 0 and cs.compressed is None and cs.mb is None
+            and cs.mb_curves is None and not cs.hairs and not cs.users):
         return miss_hits(shape, rays.tfar, device=cs.device)
     flat = _flat_rays(cs, rays)
     rm = _flat_mask(cs, ray_mask, shape)
     tm = (ray_times(0.0 if time is None else time, flat.tnear.shape[0],
-                    cs.device) if cs.mb is not None else None)
+                    cs.device)
+          if cs.mb is not None or cs.mb_curves is not None else None)
     if filter_fn is not None:
         h = _intersect_filter_restart(cs, flat, filter_fn, coherent, rm, tm)
     else:
@@ -850,7 +1086,7 @@ def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
     shape); the same dispatch as `scene_intersect`. A scene with
     motion-blur geometry raises: occlusion takes no time, and the JAX
     package answers it without the motion-blur accel."""
-    if cs.mb is not None:
+    if cs.mb is not None or cs.mb_curves is not None:
         raise _not_ported("occluded over motion-blur geometry")
     shape = rays.batch_shape
     flat = _flat_rays(cs, rays)
@@ -869,4 +1105,16 @@ def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
         occ = occ | occluded_compressed_kernel(cs.compressed_kernel, flat)
     elif cs.compressed is not None:
         occ = occ | occluded_compressed(cs.compressed, flat)
+    # curves: rays already occluded are retired with tfar = -inf
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=cs.device)
+    for h in cs.hairs:
+        occ = occ | occluded_hair_kernel(
+            h.packed, rows_times(flat.org, h.rot),
+            rows_times(flat.dir, h.rot), flat.tnear,
+            torch.where(occ, -inf, flat.tfar))
+    for e in cs.users:
+        tf = torch.where(occ, -inf, flat.tfar)
+        occ = occ | intersect_user(e.accel, e.intersect_fn,
+                                   Rays(flat.org, flat.dir, flat.tnear, tf),
+                                   tf)[5]
     return occ.reshape(shape)

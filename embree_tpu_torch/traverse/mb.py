@@ -47,6 +47,11 @@ walked to its end.
 `intersect_mb` runs the walk over an `MBAccel`'s own tensors; the scene
 traces the packed rows instead (traverse/mb_kernel.py), which hold the
 same floats.
+
+`MBCurves` / `intersect_mb_curves` are the motion-blur curve accel and
+its walk (the JAX package has no kernel for them): the lock-step walk of
+traverse/user.py over per-knot refit boxes, round segments lerped at each
+ray's time through the swept-cone test.
 """
 from __future__ import annotations
 
@@ -60,8 +65,10 @@ from ..build.bvh import BVH
 from ..core.math import (ROBUST_MAX_RCP as ROBUST_MAX,
                          ROBUST_MIN_RCP as ROBUST_MIN, rcp_safe)
 from ..core.rayhit import Hits, INVALID_ID, Rays
+from .hair import _cone_hit
 from .moeller import DEN_MIN, intersect_triangle
 from .packet_kernel import tree_depth
+from .user import walk_shared
 
 PLAIN_CHUNK = 65536              # rays per lock-step batch
 _REFIND = float(np.float32(1.0 + 1e-6))
@@ -401,3 +408,84 @@ def intersect_mb(accel: MBAccel, rays: Rays, time, t_in=None) -> Hits:
     t, prim = walk_mb(accel_rows(accel), org, d, tn, tf, tm, False,
                       new_counters())
     return _finalize_mb(accel, rays, t, prim, tm)
+
+
+class MBCurves(NamedTuple):
+    """Motion-blur CURVE accel (bvh_builder_msmblur_hair analog): one
+    SAH topology over the all-knot union of segment bounds, refit at
+    every knot; round segments lerped at the ray's time."""
+
+    bvh: BVH                 # structure (bounds field = knot 0)
+    lower_ts: torch.Tensor   # (S, M, W, 3) per-knot refit bounds
+    upper_ts: torch.Tensor
+    p0_ts: torch.Tensor      # (S, C, 4) xyzr segment starts per knot
+    p1_ts: torch.Tensor      # (S, C, 4)
+    geom_id: torch.Tensor    # (C,) i32
+    prim_id: torch.Tensor    # (C,) i32 curve id within its geometry
+    u0: torch.Tensor         # (C,) f32 curve-u at the segment's start
+    du: torch.Tensor         # (C,) f32
+
+    @property
+    def num_timesteps(self) -> int:
+        return self.lower_ts.shape[0]
+
+
+def intersect_mb_curves(accel: MBCurves, rays: Rays, time):
+    """Closest curve hit of flat rays, each at its own time (`time` a
+    scalar or one a ray): flat (t, u, v, ng, prim_id, geom_id, hit_mask),
+    t = tfar on a miss. The lock-step walk of traverse/user.py; a node's
+    child boxes are, for each ray, the union of the knot boxes active at
+    its time (`knot_ranges`), and a leaf's segments are lerped at the
+    ray's time and run through the swept-cone test (traverse/hair.py::
+    _cone_hit), an earlier segment keeping an equal t.
+
+    The JAX package tests the union of the knots that meet the batch's
+    whole time range, which gives the same hits; its leaf computes the
+    cone's squared axis length summed over the whole batch instead of a
+    ray's own (`ROADMAP.md` C), which is right for a batch of one ray."""
+    S = accel.num_timesteps
+    org, d = rays.org.reshape(-1, 3), rays.dir.reshape(-1, 3)
+    tn, tf = rays.tnear.reshape(-1), rays.tfar.reshape(-1)
+    R = tn.shape[0]
+    dev = tn.device
+    tm = ray_times(time, R, dev)
+    seg, w = _seg_weights(tm, S)
+    w_ = w[:, None]
+    k0, k1 = knot_ranges(S, dev)
+    act = (k1[None] >= tm[:, None]) & (k0[None] <= tm[:, None])  # (R, S)
+    rdir = rcp_safe(d)
+    org_rdir = org * rdir
+    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+
+    def node_test(node, t):
+        a = act[:, :, None, None]                         # (R, S, 1, 1)
+        lo = torch.where(a, accel.lower_ts[None, :, node], inf).amin(1)
+        hi = torch.where(a, accel.upper_ts[None, :, node], -inf).amax(1)
+        t_lo = lo * rdir[:, None] - org_rdir[:, None]     # (R, W, 3)
+        t_hi = hi * rdir[:, None] - org_rdir[:, None]
+        tmin = torch.minimum(t_lo, t_hi).amax(-1) * ROBUST_MIN
+        tmax = torch.maximum(t_lo, t_hi).amin(-1) * ROBUST_MAX
+        tmin = torch.maximum(tmin, tn[:, None])
+        return ((tmin <= tmax) & (tmin <= t[:, None])).T
+
+    def leaf(p, t, st):
+        prim, u, ng = st
+        a = accel.p0_ts[seg, p] * (1 - w_) + accel.p0_ts[seg + 1, p] * w_
+        b = accel.p1_ts[seg, p] * (1 - w_) + accel.p1_ts[seg + 1, p] * w_
+        ok, th, uh, ngh = _cone_hit(a[:, :3], b[:, :3], a[:, 3], b[:, 3],
+                                    Rays(org, d, tn, t), t)
+        return (torch.where(ok, th, t),
+                (torch.where(ok, p, prim), torch.where(ok, uh, u),
+                 torch.where(ok[:, None], ngh, ng)))
+
+    st0 = (torch.full((R,), -1, dtype=torch.int32, device=dev),
+           torch.zeros(R, dtype=torch.float32, device=dev),
+           torch.zeros((R, 3), dtype=torch.float32, device=dev))
+    t, (prim, uh, ng), _pops = walk_shared(accel.bvh, node_test, leaf,
+                                           tf.clone(), st0)
+    hitm = prim >= 0
+    p = prim.clamp_min(0).long()
+    u = torch.where(hitm, accel.u0[p] + uh * accel.du[p], 0.0)
+    return (t, u, torch.zeros_like(u), ng,
+            torch.where(hitm, accel.prim_id[p], -1),
+            torch.where(hitm, accel.geom_id[p], -1), hitm)

@@ -347,17 +347,21 @@ def traversal_stats(ps: PackedScene, rays: Rays) -> np.ndarray:
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
-                 stack_depth, cnt):
+def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
+               leaf):
+    """The kernel's walk in masked tensor ops, all rays of a batch in
+    lock-step, one pop per ray and step, over node rows `nodes` of width
+    W behind an (R, D) stack. A popped leaf goes to `leaf(la, start,
+    count, t, prim, sp)` for the rays `la` that popped one: it updates
+    t, prim and (for any-hit rays that stop) sp in place. Shared by the
+    triangle leaves of this kernel and the curve leaves of kernel B3
+    (traverse/hair_kernel.py). Returns (t, prim)."""
     n = tn.shape[0]
     dev = tn.device
-    W, D = ps.width, stack_depth
     ox, oy, oz = org.unbind(1)
     dx, dy, dz = d.unbind(1)
     rdx, rdy, rdz = rcp_safe(dx), rcp_safe(dy), rcp_safe(dz)
     orx, ory, orz = ox * rdx, oy * rdy, oz * rdz
-    tflat = ps.tdata.view(-1)
-    fofs = torch.arange(TRI_FLOATS, device=dev)
     neg_inf = torch.tensor(-math.inf, dtype=torch.float32, device=dev)
 
     t = tf.clone()
@@ -385,7 +389,7 @@ def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
             node = ref[isnode].long()
             if cnt["node_touched"] is not None:
                 cnt["node_touched"][node] = True
-            f = ps.nodes[node, :8 * W].view(k, 8, W)
+            f = nodes[node, :8 * W].view(k, 8, W)
             tx0 = f[:, 0] * rdx[na, None] - orx[na, None]
             tx1 = f[:, 3] * rdx[na, None] - orx[na, None]
             ty0 = f[:, 1] * rdy[na, None] - ory[na, None]
@@ -424,55 +428,68 @@ def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
         if la.numel():
             cnt["leaves"] += la.shape[0]
             v = -ref[~isnode].long() - 1
-            start = v >> 4
-            lcnt = (v & 15).clamp_max(MAX_LEAF)
-            for j in range(MAX_LEAF):
-                m = j < lcnt
-                if occluded:
-                    m &= t[la] != -math.inf
-                sub = la[m]
-                if sub.numel() == 0:
-                    break
-                cnt["tris"] += sub.shape[0]
-                p = start[m] + j
-                trow = p // NT_PER_ROW
-                if cnt["row_touched"] is not None:
-                    cnt["row_touched"][trow] = True
-                base = trow * 128 + (p - trow * NT_PER_ROW) * TRI_FLOATS
-                g = tflat[base[:, None] + fofs]                # (k, 12)
-                v0x, v0y, v0z = g[:, 0], g[:, 1], g[:, 2]
-                e1x, e1y, e1z = g[:, 3], g[:, 4], g[:, 5]
-                e2x, e2y, e2z = g[:, 6], g[:, 7], g[:, 8]
-                ngx, ngy, ngz = g[:, 9], g[:, 10], g[:, 11]
-                rox, roy, roz = ox[sub], oy[sub], oz[sub]
-                rdx_, rdy_, rdz_ = dx[sub], dy[sub], dz[sub]
-                cx = v0x - rox
-                cy = v0y - roy
-                cz = v0z - roz
-                rx = cy * rdz_ - cz * rdy_
-                ry = cz * rdx_ - cx * rdz_
-                rz = cx * rdy_ - cy * rdx_
-                den = ngx * rdx_ + ngy * rdy_ + ngz * rdz_
-                absden = den.abs()
-                sgn = torch.where(den >= 0, 1.0, -1.0).to(den.dtype)
-                u_s = (rx * e2x + ry * e2y + rz * e2z) * sgn
-                v_s = (rx * e1x + ry * e1y + rz * e1z) * sgn
-                t_s = (ngx * cx + ngy * cy + ngz * cz) * sgn
-                front = (den < 0) if cull else (den != 0)
-                # pad triangles are all zero, so den = 0: they never hit
-                hit = (front & (u_s >= 0) & (v_s >= 0)
-                       & (u_s + v_s <= absden) & (absden * tn[sub] < t_s)
-                       & (t_s <= absden * t[sub]))
-                if pm is not None:
-                    hit &= (pm[p] & rm[sub]) != 0
-                hs = sub[hit]
-                if occluded:
-                    t[hs] = -math.inf
-                    sp[hs] = 0
-                else:
-                    t[hs] = (t_s / absden.clamp_min(DEN_MIN))[hit]
-                    prim[hs] = p[hit].to(torch.int32)
+            leaf(la, v >> 4, (v & 15).clamp_max(MAX_LEAF), t, prim, sp)
     return t, prim
+
+
+def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
+                 stack_depth, cnt):
+    dev = tn.device
+    ox, oy, oz = org.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    tflat = ps.tdata.view(-1)
+    fofs = torch.arange(TRI_FLOATS, device=dev)
+
+    def leaf(la, start, lcnt, t, prim, sp):
+        for j in range(MAX_LEAF):
+            m = j < lcnt
+            if occluded:
+                m &= t[la] != -math.inf
+            sub = la[m]
+            if sub.numel() == 0:
+                break
+            cnt["tris"] += sub.shape[0]
+            p = start[m] + j
+            trow = p // NT_PER_ROW
+            if cnt["row_touched"] is not None:
+                cnt["row_touched"][trow] = True
+            base = trow * 128 + (p - trow * NT_PER_ROW) * TRI_FLOATS
+            g = tflat[base[:, None] + fofs]                # (k, 12)
+            v0x, v0y, v0z = g[:, 0], g[:, 1], g[:, 2]
+            e1x, e1y, e1z = g[:, 3], g[:, 4], g[:, 5]
+            e2x, e2y, e2z = g[:, 6], g[:, 7], g[:, 8]
+            ngx, ngy, ngz = g[:, 9], g[:, 10], g[:, 11]
+            rox, roy, roz = ox[sub], oy[sub], oz[sub]
+            rdx_, rdy_, rdz_ = dx[sub], dy[sub], dz[sub]
+            cx = v0x - rox
+            cy = v0y - roy
+            cz = v0z - roz
+            rx = cy * rdz_ - cz * rdy_
+            ry = cz * rdx_ - cx * rdz_
+            rz = cx * rdy_ - cy * rdx_
+            den = ngx * rdx_ + ngy * rdy_ + ngz * rdz_
+            absden = den.abs()
+            sgn = torch.where(den >= 0, 1.0, -1.0).to(den.dtype)
+            u_s = (rx * e2x + ry * e2y + rz * e2z) * sgn
+            v_s = (rx * e1x + ry * e1y + rz * e1z) * sgn
+            t_s = (ngx * cx + ngy * cy + ngz * cz) * sgn
+            front = (den < 0) if cull else (den != 0)
+            # pad triangles are all zero, so den = 0: they never hit
+            hit = (front & (u_s >= 0) & (v_s >= 0)
+                   & (u_s + v_s <= absden) & (absden * tn[sub] < t_s)
+                   & (t_s <= absden * t[sub]))
+            if pm is not None:
+                hit &= (pm[p] & rm[sub]) != 0
+            hs = sub[hit]
+            if occluded:
+                t[hs] = -math.inf
+                sp[hs] = 0
+            else:
+                t[hs] = (t_s / absden.clamp_min(DEN_MIN))[hit]
+                prim[hs] = p[hit].to(torch.int32)
+
+    return plain_walk(ps.nodes, ps.width, stack_depth, org, d, tn, tf,
+                      occluded, cnt, leaf)
 
 
 def packet_plain(ps: PackedScene, rays: Rays, occluded: bool = False,

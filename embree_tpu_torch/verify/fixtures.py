@@ -1,7 +1,8 @@
 """Procedural scene creators for tests and the on-card smoke run.
 
 Copy (numpy only) of the creators of embree_tpu/verify/fixtures.py
-that the ported modules use.
+that the ported modules use, and the hair ball of the JAX package's
+hair tests (`hair_ball`).
 
 Analog of tutorials/common/scenegraph/geometry_creation.cpp
 (createTriangleSphere / createQuadSphere / createTrianglePlane /
@@ -97,3 +98,28 @@ def crossing_clusters(rng: np.random.Generator, n: int = 220, S: int = 5):
     idx = np.stack([np.arange(n), np.arange(n) + n,
                     np.arange(n) + 2 * n], 1).astype(np.int32)
     return verts_t, idx
+
+
+def hair_ball(rng: np.random.Generator, n_curves: int = 120,
+              diagonal: bool = False):
+    """Random hair (tests/test_hair.py's `_hair_ball`): n_curves cubic
+    Bezier curves of radius 0.02, 1.2 long, rooted uniformly in [-1, 1]^3,
+    bowed a little; all along (1, 1, 1) when `diagonal`. Returns
+    ((4 n, 4) xyzr vertices, (n,) first-vertex indices)."""
+    verts = []
+    idx = []
+    for c in range(n_curves):
+        base = rng.uniform(-1, 1, 3).astype(np.float32)
+        if diagonal:
+            axis = np.array([1.0, 1.0, 1.0]) / np.sqrt(3.0)
+        else:
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+        bow = rng.normal(size=3).astype(np.float32) * 0.05
+        r = 0.02
+        for k in range(4):
+            p = base + axis * (k / 3.0) * 1.2 + bow * np.sin(k * 1.1)
+            verts.append([p[0], p[1], p[2], r])
+        idx.append(4 * c)
+    return (np.asarray(verts, np.float32),
+            np.asarray(idx, np.int32))

@@ -224,12 +224,95 @@ def test_no_try_around_the_launch():
                 "scene/subdiv_accel.py",
                 "render/tutorials/displacement_geometry.py",
                 "traverse/mb.py", "traverse/mb_kernel.py", "build/refit.py",
-                "render/tutorials/motion_blur_geometry.py"):
+                "render/tutorials/motion_blur_geometry.py",
+                "traverse/hair_kernel.py", "traverse/hair.py",
+                "traverse/user.py", "scene/curves.py", "build/hair.py",
+                "render/tutorials/hair_geometry.py",
+                "render/tutorials/curve_geometry.py"):
         with open(os.path.join(PKG, rel)) as f:
             tree = ast.parse(f.read())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{rel} has a try statement"
     for rel in ("rowtrace2.py", "packet_kernel.py", "cbvh.py",
-                "cbvh_kernel.py", "mb.py", "mb_kernel.py"):
+                "cbvh_kernel.py", "mb.py", "mb_kernel.py", "hair_kernel.py",
+                "hair.py", "user.py"):
         with open(os.path.join(PKG, "traverse", rel)) as f:
             assert "torch.compile" not in f.read()
+
+
+def test_hair_wrapper_launches_or_raises_and_takes_plain_on_cpu(monkeypatch):
+    """Kernel B3's wrapper: CPU tensors run hair_plain without building or
+    launching anything; tensors on another device go to the kernel (here
+    a stand-in that raises), never quietly to the plain version."""
+    from embree_tpu_torch.traverse import hair_kernel as hk
+    cps = np.array([[[0, 0, 0], [0, 0.3, 0], [0, 0.6, 0], [0, 1, 0]]],
+                   np.float32)
+    rad = np.full((1, 4), 0.1, np.float32)
+    ph = hk.pack_hair_cluster(cps, rad, 4, False, "cpu")
+    rays = ett.make_rays(np.array([[0., 0.5, 3.]]), np.array([[0., 0., -1.]]),
+                         device="cpu")
+
+    class Refused(Exception):
+        pass
+
+    def no_kernel(*a, **k):
+        raise Refused
+
+    monkeypatch.setattr(hk, "_load_kernel", no_kernel)
+    before = dict(hk.launches)
+    t, slot, _ = hk.hair_trace(ph, rays)
+    assert slot.item() >= 0 and abs(t.item() - 2.9) < 1e-3
+    assert hk.occluded_hair_kernel(ph, rays.org, rays.dir, rays.tnear,
+                                   rays.tfar).item()
+    assert hk.launches == before
+    meta = hk.PackedHair(*(a.to("meta") if isinstance(a, torch.Tensor)
+                           else a for a in ph))
+    mrays = ett.Rays(*(a.to("meta") for a in rays))
+    for occluded in (False, True):
+        with pytest.raises(Refused):
+            hk.hair_trace(meta, mrays, occluded)
+
+
+def test_hair_scene_and_tutorials_pull_in_no_jax():
+    """In a fresh interpreter: commit and query hair, line segments and
+    motion-blur curves on the CPU and render both curve tutorials."""
+    code = (
+        "import sys, numpy as np\n"
+        "import embree_tpu_torch as ett\n"
+        "from embree_tpu_torch.render.camera import Camera\n"
+        "from embree_tpu_torch.render.tutorials import hair_geometry as hg\n"
+        "from embree_tpu_torch.render.tutorials import curve_geometry as cg\n"
+        "dev = ett.Device('ignore_config_files=1', device='cpu')\n"
+        "cp = np.array([[0, -1, 0, .2], [0, -.3, 0, .2], [0, .3, 0, .2],\n"
+        "               [0, 1, 0, .2]], np.float32)\n"
+        "rays = ett.make_rays(np.array([[0., 0., 3.], [5., 5., 3.]]),\n"
+        "                     np.array([[0., 0., -1.], [0., 0., -1.]]),\n"
+        "                     device='cpu')\n"
+        "for g in (ett.BezierCurves(cp, [0]), ett.BezierCurves(cp, [0],\n"
+        "          flat=True), ett.BSplineCurves(cp, [0]),\n"
+        "          ett.LineSegments(cp, [1])):\n"
+        "    sc = ett.Scene(dev)\n"
+        "    sc.attach(g)\n"
+        "    sc.commit()\n"
+        "    h = sc.intersect(rays)\n"
+        "    assert h.valid.tolist() == [True, False], (g, h.valid)\n"
+        "    assert sc.occluded(rays).tolist() == [True, False]\n"
+        "sc = ett.Scene(dev)\n"
+        "sc.attach(ett.BezierCurvesMB(cp, cp + np.float32([2, 0, 0, 0]),\n"
+        "                             indices=[0]))\n"
+        "sc.commit()\n"
+        "assert sc.intersect(rays, time=0.0).valid.tolist() == [True, False]\n"
+        "assert not sc.intersect(rays, time=1.0).valid.any()\n"
+        "for mod in (hg, cg):\n"
+        "    st = mod.build_scene(dev)\n"
+        "    img, _ = mod.render_frame(st, mod.make_app().camera, (16, 12))\n"
+        "    assert img.shape == (12, 16, 3) and float(img.max()) > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'embree_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('PORT_OK')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "PORT_OK" in out.stdout
