@@ -43,11 +43,16 @@ the public entry points:
     (1,572,864 round sub-segments in strand-aligned clusters, over its
     ground plane) with 2^21 incoherent rays and a 1920x1080 frame, and
     2^16 random flat curves (524,288 ribbon sub-segments in 13 clusters),
-    through `scene.intersect` / `scene.occluded`, held against B3's plain
-    version on every cluster and against a brute force over every
-    sub-segment; line segments, a segment soup and motion-blur curves on
-    the torch-op walks against brute forces; the `hair_geometry` and
-    `curve_geometry` tutorials.
+    through `scene.intersect` / `scene.occluded` (one B3 launch a request
+    over every cluster), held against B3's plain version, against the
+    fold one cluster at a time (bit for bit) and against a brute force
+    over every sub-segment; line segments, a segment soup and motion-blur
+    curves on the torch-op walks against brute forces; the
+    `hair_geometry` and `curve_geometry` tutorials;
+  * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
+    all ten kernel entries against their plain versions, and 100,000
+    rays from inside closed spheres through B2 and B6, none of which may
+    miss.
 
 Answers are checked against the plain versions, against brute-force
 tests of every primitive, between the two triangle kernels, and against
@@ -102,7 +107,7 @@ from embree_tpu_torch.render.tutorials import (  # noqa: E402
     curve_geometry as curve_tutorial)
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     hair_geometry as hair_tutorial)
-from embree_tpu_torch.scene.scene import _fold_hair  # noqa: E402
+from embree_tpu_torch.scene.scene import _fold, _fold_hair  # noqa: E402
 from embree_tpu_torch.traverse import cbvh_kernel as ck  # noqa: E402
 from embree_tpu_torch.traverse import hair_kernel as hk  # noqa: E402
 from embree_tpu_torch.traverse.hair import _cone_hit  # noqa: E402
@@ -172,11 +177,10 @@ MB_TIME_SEED = 0x7135
 MB_PLAIN_LOG2 = 16
 MB_SMALL_RAYS = 1 << 16
 # float32 operations of the MB walk, counted from csrc/mb.cu: a child's
-# slab test and its time gate, one knot box folded into the union (6
-# min/max), and one triangle test (9 lerps of 3 operations, then the
-# Moeller test without precomputed edges)
-MB_SLAB_FLOPS = SLAB_FLOPS + 2
-MB_KNOT_FLOPS = 6
+# box lerped to the ray's time (6 components of 2 products and a sum),
+# its slab test and its time gate; one triangle test (9 lerps of 3
+# operations, then the Moeller test without precomputed edges)
+MB_SLAB_FLOPS = 18 + SLAB_FLOPS + 2
 MB_TRI_FLOPS = 27 + TRI_FLOPS
 # the hair path (kernel B3): main-hair is the hair_geometry tutorial's fur
 # at 2^18 strands, tessellation 6; hairball-flat 2^16 random flat curves,
@@ -195,6 +199,9 @@ SOUP_RAYS = 1 << 14        # rays of the segment-soup and MB-curve scenes
 # 4 compares); a node's child slab tests as for B2
 CONE_FLOPS = 87
 RIBBON_FLOPS = 74
+# a ray rotated into a cluster's frame: origin and direction, 9 products
+# and 6 sums each
+ROT_FLOPS = 30
 
 
 T_START = time.perf_counter()
@@ -520,11 +527,12 @@ class Launches:
 
     def expect_hair(self, what, cs, closest, occluded):
         """`closest` intersect and `occluded` occluded requests on `cs`:
-        one B3 launch a cluster and request, of the cluster's leaf type."""
+        one B3 launch a request and leaf type, over all its clusters."""
         want = {k: 0 for k in hk.launches}
-        for h in cs.hairs:
-            want[h.packed.leaf] += closest
-            want[h.packed.leaf + "_occluded"] += occluded
+        for flat, _first, _count in cs.hair_set.packed.runs():
+            leaf = "ribbon" if flat else "cone"
+            want[leaf] += closest
+            want[leaf + "_occluded"] += occluded
         got = {k: getattr(self, "hair_" + k) for k in hk.launches}
         if got != want:
             raise AssertionError(f"{what}: B3 launches {got}, expected {want}")
@@ -919,7 +927,6 @@ def compare_mb_plain(pm, rays, times, label):
         f"t within {max(ulps, ulps_s)} ulp, occlusion equal, counters equal "
         f"(per ray {st_k['node_visits'] / n:.2f} nodes, "
         f"{st_k['slab_tests'] / n:.2f} slab tests, "
-        f"{st_k['knot_boxes'] / n:.2f} knot boxes, "
         f"{st_k['tri_tests'] / n:.2f} triangle tests; occlusion "
         f"{so_k['node_visits'] / n:.2f} nodes), 0 dropped; plain "
         f"{plain_ms:.0f} + {plain_occ_ms:.0f} ms")
@@ -1014,17 +1021,19 @@ def mb_small_scene_checks(device):
 def mb_bound(pm, st, occluded):
     """Least time the card could take for what this run's rays needed of
     the MB kernel: the larger of bytes / memory rate (rays and times in,
-    results out, the used part of every touched node row, and every
-    touched triangle's row and its prim_order entry once) and counted
-    float32 operations / the non-tensor fp32 peak."""
+    results out; of every touched node row its header, child and count,
+    its time gates and two knot boxes of every child, of every touched
+    triangle two knots and its prim_order entry, once) and counted
+    float32 operations (the box lerp and slab test of every child tested,
+    the vertex lerp and Moeller test of every triangle tested) / the
+    non-tensor fp32 peak."""
     out_bytes = 1 if occluded else 8
-    node_bytes = 4 * (4 * pm.W + 6 * pm.W * pm.S)
-    tri_bytes = 4 * 9 * pm.S + 4
+    node_bytes = 4 * (4 * pm.W + 2 * 6 * pm.W)
+    tri_bytes = 4 * 2 * 9 + 4
     nbytes = (st["rays"] * (9 * 4 + out_bytes)
               + st["nodes_touched"] * node_bytes
               + st["prims_touched"] * tri_bytes)
     flops = (st["slab_tests"] * MB_SLAB_FLOPS
-             + st["knot_boxes"] * MB_KNOT_FLOPS
              + st["tri_tests"] * MB_TRI_FLOPS)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_FP32_PER_S * 1e3
@@ -1047,7 +1056,6 @@ def mb_times(label, pm, flat, times):
         log(f"  mb {mode}, {label}, {n} rays: {ms:.3f} ms, "
             f"{n / ms / 1e3:.1f} Mray/s; per ray {st['node_visits'] / n:.2f} "
             f"nodes, {st['slab_tests'] / n:.2f} slab tests, "
-            f"{st['knot_boxes'] / n:.2f} knot boxes, "
             f"{st['tri_tests'] / n:.2f} triangle tests; "
             f"{st['nodes_touched']} of {pm.num_nodes} node rows and "
             f"{st['prims_touched']} of {pm.num_prims} triangle rows touched; "
@@ -1152,30 +1160,38 @@ def cluster_rays(h, rays: Rays, t=None) -> Rays:
                 f.tnear, f.tfar if t is None else t)
 
 
-def compare_hair_plain(ph, rays, label):
-    """B3, main and counting builds, closest and any hit, against its
-    plain version on the same card tensors (rays in the cluster's frame):
-    t at 0 ulp, slot equal, counters equal, no dropped push, any hit
-    equal to (closest hit found or tfar = -inf). Returns (max abs err of
-    t, plain ms closest, plain ms occluded, stats of the closest hit)."""
+def compare_hair_plain(hs, rays, label):
+    """B3 over every cluster of a set in one launch (a run of one leaf
+    type), main and counting builds, closest and any hit, against its
+    plain version on the same card tensors (rays in the world frame): t
+    at 0 ulp, slot and cluster equal, counters equal, no dropped push,
+    any hit equal to (closest hit found or tfar = -inf). Returns (max abs
+    err of t, plain ms closest, plain ms occluded, stats of the closest
+    hit)."""
+    (flat, first, count), = hs.runs()
     res = {}
     for occl in (False, True):
-        t_k, s_k, _ = hk.hair_trace(ph, rays, occl)
-        t_s, s_s, st_k = hk.hair_trace(ph, rays, occl, stats=True)
+        t_k, s_k, c_k, _ = hk.hair_set_trace(hs, rays, first, count, occl)
+        t_s, s_s, c_s, st_k = hk.hair_set_trace(hs, rays, first, count,
+                                                occl, stats=True)
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
-        t_p, s_p, st_p = hk.hair_plain(ph, rays, occl, stats=True)
+        t_p, s_p, c_p, st_p = hk.hair_set_plain(hs, rays, first, count, occl,
+                                                stats=True)
         ev1.record()
         torch.cuda.synchronize()
         mode = "any hit" if occl else "closest"
-        for tk, sk, what in ((t_k, s_k, ""), (t_s, s_s, " (counting build)")):
+        for tk, sk, ck_, what in ((t_k, s_k, c_k, ""),
+                                  (t_s, s_s, c_s, " (counting build)")):
             ulps = ulp_distance(tk, t_p)
-            if ulps != 0 or not torch.equal(sk, s_p):
+            if ulps != 0 or not torch.equal(sk, s_p) or not torch.equal(
+                    ck_, c_p):
                 raise AssertionError(
                     f"{label}, {mode}{what}: t {ulps} ulp apart, slot "
-                    f"differs on {int((sk != s_p).sum())} rays")
+                    f"differs on {int((sk != s_p).sum())} rays, cluster on "
+                    f"{int((ck_ != c_p).sum())}")
         if st_k != st_p:
             raise AssertionError(f"{label}, {mode}: counters differ: {st_k} "
                                  f"vs {st_p}")
@@ -1192,12 +1208,59 @@ def compare_hair_plain(ph, rays, label):
     if not torch.equal(s_o, torch.full_like(s_o, -1)):
         raise AssertionError(f"{label}: the any-hit variant wrote a slot")
     n = t_c.numel()
-    log(f"  {label}: {n} rays, {int((s_c >= 0).sum())} hits; t at 0 ulp, "
-        f"slot equal, counters equal (per ray {st_c['node_visits'] / n:.2f} "
+    log(f"  {label}: {n} rays, {count} clusters in one launch, "
+        f"{int((s_c >= 0).sum())} hits; t at 0 ulp, slot and cluster "
+        f"equal, counters equal (per ray {st_c['node_visits'] / n:.2f} "
         f"nodes, {st_c['seg_tests'] / n:.2f} segment tests; any hit "
         f"{st_o['node_visits'] / n:.2f} nodes), 0 dropped; plain {ms_c:.0f} "
         f"+ {ms_o:.0f} ms")
     return err, ms_c, ms_o, st_c
+
+
+def check_fold_equal(label, cs, rays):
+    """A request's hair fold (one launch a leaf type over every cluster,
+    one finalize) against the fold one cluster at a time (a launch of the
+    cluster alone with the rays rotated on the host, its finalize, Ng
+    rotated back, the min-combine): t, u, v, Ng, prim_id, geom_id equal
+    bit for bit, and occlusion equal."""
+    flat = flat_rays(rays)
+    n = flat.tnear.shape[0]
+    start = ett.miss_hits((n,), flat.tfar, device=flat.tnear.device)
+    one = _fold_hair(cs, flat, start)
+    old = start
+    occ = torch.zeros(n, dtype=torch.bool, device=flat.tnear.device)
+    for h in cs.hairs:
+        t, u, v, ng, m, hitm = hk.intersect_hair_kernel(
+            h.packed, rows_times(flat.org, h.rot),
+            rows_times(flat.dir, h.rot), flat.tnear, old.t.contiguous())
+        old = _fold(old, hitm & (t < old.t), t, u, v,
+                    rows_times(ng, h.rot.T),
+                    h.members[m.clamp_min(0).long()], h.gid)
+        occ = occ | hk.occluded_hair_kernel(
+            h.packed, rows_times(flat.org, h.rot),
+            rows_times(flat.dir, h.rot), flat.tnear,
+            torch.where(occ, -math.inf, flat.tfar))
+    for name in ("t", "u", "v", "ng", "prim_id", "geom_id"):
+        a, b = getattr(one, name), getattr(old, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: the one-launch fold differs from "
+                                 f"the per-cluster fold in {name} on "
+                                 f"{int((a != b).reshape(n, -1).any(1).sum())}"
+                                 " rays")
+    hs = cs.hair_set.packed
+    occ_one = torch.zeros_like(occ)
+    for _flat, first, count in hs.runs():
+        occ_one = occ_one | hk.occluded_hair_set(
+            hs, flat, torch.where(occ_one, -math.inf, flat.tfar), first,
+            count)
+    if not torch.equal(occ_one, occ):
+        raise AssertionError(f"{label}: occlusion differs from the "
+                             "per-cluster fold")
+    log(f"  {label}: {n} rays, one launch == {len(cs.hairs)} launches "
+        f"folded one cluster at a time, bit for bit (t, u, v, Ng, prim_id, "
+        f"geom_id; {int(one.valid.sum())} hits), occlusion equal")
 
 
 def hair_small_scenes(device_cfg=""):
@@ -1231,22 +1294,23 @@ def hair_small_scenes(device_cfg=""):
 
 
 def hair_small_scene_checks(device):
-    """Phase 3e: B3 against its plain version on every cluster of the
-    small hair scenes, and each scene's requests through the kernel.
-    Returns {leaf: max abs err of t}."""
+    """Phase 3e: B3 against its plain version over all clusters of each
+    small hair scene, the one-launch fold against the per-cluster fold,
+    and each scene's requests through the kernel. Returns {leaf: max abs
+    err of t}."""
     rng = np.random.default_rng(0x3E)
     worst = {"cone": 0.0, "ribbon": 0.0}
     for label, sc in hair_small_scenes():
         cs = sc.committed
+        hs = cs.hair_set.packed
         rays = hair_rays(rng, 4096, device, world_segments(cs),
                          retire_every=7)
-        for k, h in enumerate(cs.hairs):
-            ph = h.packed
-            err, _, _, _ = compare_hair_plain(
-                ph, cluster_rays(h, rays),
-                f"{label}, cluster {k} ({ph.leaf}, {ph.num_segments} "
-                f"segments, {ph.num_nodes} nodes)")
-            worst[ph.leaf] = max(worst[ph.leaf], err)
+        err, _, _, _ = compare_hair_plain(
+            hs, rays, f"{label} ({'ribbon' if hs.flat[0] else 'cone'}, "
+            f"{sum(hs.num_segments)} segments, {sum(hs.num_nodes)} nodes)")
+        leaf = "ribbon" if hs.flat[0] else "cone"
+        worst[leaf] = max(worst[leaf], err)
+        check_fold_equal(label, cs, rays)
         with Launches() as lc:
             hits = sc.intersect(rays)
             occ = sc.occluded(rays)
@@ -1260,22 +1324,23 @@ def hair_small_scene_checks(device):
     return worst
 
 
-def hair_bound(ph_list, stats_list, rays):
+def hair_bound(hs, st, rays):
     """Least time the card could take for what this run's rays needed of
-    B3 over all clusters of a scene: the larger of bytes / memory rate
-    (a ray's org, dir, tnear and tfar in and (t, slot) out a launch, the
-    8 x WIDTH floats of a touched node row that the walk reads, as
-    `packet_bound` counts them, and 32 B a segment of a touched segment
-    row, each once) and counted float32 operations / the non-tensor fp32
-    peak."""
-    nbytes = flops = 0
-    for ph, st in zip(ph_list, stats_list):
-        nbytes += (rays * (8 * 4 + 2 * 4)
-                   + st["nodes_touched"] * 8 * hk.WIDTH * 4
-                   + st["rows_touched"] * hk.NS_PER_ROW * 32)
-        flops += (st["node_visits"] * hk.WIDTH * SLAB_FLOPS
-                  + st["seg_tests"] * (RIBBON_FLOPS if ph.flat
-                                       else CONE_FLOPS))
+    one B3 launch over every cluster of a set: the larger of bytes /
+    memory rate (a ray's org, dir, tnear and tfar in and (t, slot,
+    cluster) out once a request, the 8 x WIDTH floats of a touched node
+    row that the walk reads, as `packet_bound` counts them, and 32 B a
+    segment of a touched segment row, each once) and counted float32
+    operations (a ray's rotation into each cluster it entered, which an
+    any-hit ray that hits stops doing, the slab tests of every node
+    visited, every segment test) / the non-tensor fp32 peak."""
+    nbytes = (rays * (8 * 4 + 3 * 4)
+              + st["nodes_touched"] * 8 * hk.WIDTH * 4
+              + st["rows_touched"] * hk.NS_PER_ROW * 32)
+    flops = ((0 if hs.rots is None else st["clusters_entered"] * ROT_FLOPS)
+             + st["node_visits"] * hk.WIDTH * SLAB_FLOPS
+             + st["seg_tests"] * (RIBBON_FLOPS if hs.flat[0]
+                                  else CONE_FLOPS))
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_FP32_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
@@ -1284,30 +1349,26 @@ def hair_bound(ph_list, stats_list, rays):
 
 
 def hair_times(label, cs, rays):
-    """Times, counters and bound of B3 over every cluster of `cs` on one
-    batch, closest and any hit, each cluster from tfar as a request's
-    first fold would (the request itself starts each cluster from the
-    running t)."""
+    """Times, counters and bound of B3's one launch over every cluster of
+    `cs` on one batch, closest and any hit, from tfar."""
     out = {}
     n = rays.tnear.numel()
-    crs = [cluster_rays(h, rays) for h in cs.hairs]
+    hs = cs.hair_set.packed
+    flat = flat_rays(rays)
     for mode, occl in (("closest", False), ("occluded", True)):
-        def run():
-            for h, cr in zip(cs.hairs, crs):
-                hk.hair_trace(h.packed, cr, occl)
-        ms = time_ms(run)
-        sts = [hk.hair_trace(h.packed, cr, occl, stats=True)[2]
-               for h, cr in zip(cs.hairs, crs)]
-        if any(st["dropped_pushes"] for st in sts):
+        ms = time_ms(lambda: hk.hair_set_trace(hs, flat, occluded=occl))
+        st = hk.hair_set_trace(hs, flat, occluded=occl, stats=True)[3]
+        if st["dropped_pushes"]:
             raise AssertionError(f"{label}: dropped pushes")
-        bound = hair_bound([h.packed for h in cs.hairs], sts, n)
-        nodes = sum(st["node_visits"] for st in sts)
-        segs = sum(st["seg_tests"] for st in sts)
-        out[mode] = {"ms": ms, "bound": bound, "nodes": nodes / n,
-                     "segs": segs / n}
-        log(f"  hair {mode}, {label}, {n} rays, {len(cs.hairs)} launches: "
-            f"{ms:.3f} ms, {n / ms / 1e3:.1f} Mray/s; per ray "
-            f"{nodes / n:.2f} node visits, {segs / n:.2f} segment tests; "
+        bound = hair_bound(hs, st, n)
+        out[mode] = {"ms": ms, "bound": bound,
+                     "nodes": st["node_visits"] / n,
+                     "segs": st["seg_tests"] / n}
+        log(f"  hair {mode}, {label}, {n} rays, 1 launch over "
+            f"{hs.num_clusters} clusters: {ms:.3f} ms, "
+            f"{n / ms / 1e3:.1f} Mray/s; per ray "
+            f"{st['node_visits'] / n:.2f} node visits, "
+            f"{st['seg_tests'] / n:.2f} segment tests; "
             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
             f"(bytes {bound['bytes'] / 1e6:.1f} MB -> "
             f"{bound['bytes_ms']:.4f} ms, operations "
@@ -1371,21 +1432,19 @@ def hair_brute_check(label, cs, rays, n_rays):
 
 
 def hair_full_checks(label, cs, rays):
-    """B3 against its plain version on the first 2^HAIR_PLAIN_LOG2 rays
-    of a full-size scene, every cluster, closest and any hit. Returns
-    (max abs err of t, plain ms closest, plain ms any hit), the plain
-    times summed over the clusters."""
+    """B3's one launch against its plain version on the first
+    2^HAIR_PLAIN_LOG2 rays of a full-size scene, every cluster, closest
+    and any hit. Returns (max abs err of t, plain ms closest, plain ms
+    any hit)."""
     nh = 1 << HAIR_PLAIN_LOG2
     head = Rays(*(a[:nh].contiguous() for a in flat_rays(rays)))
-    err = ms_c = ms_o = 0.0
-    for k, h in enumerate(cs.hairs):
-        e, mc, mo, _st = compare_hair_plain(
-            h.packed, cluster_rays(h, head),
-            f"{label}, cluster {k} ({h.packed.num_segments} segments, "
-            f"{h.packed.num_nodes} nodes, {h.packed.depth} levels), the "
-            f"first 2^{HAIR_PLAIN_LOG2} rays")
-        err, ms_c, ms_o = max(err, e), ms_c + mc, ms_o + mo
-    return err, ms_c, ms_o
+    hs = cs.hair_set.packed
+    e, mc, mo, _st = compare_hair_plain(
+        hs, head, f"{label}, {hs.num_clusters} clusters "
+        f"({sum(hs.num_segments)} segments, {sum(hs.num_nodes)} nodes, "
+        f"{max(hs.depth)} levels at most), the first 2^{HAIR_PLAIN_LOG2} "
+        "rays")
+    return e, mc, mo
 
 
 def brute_user_check(label, entry, flat: Rays, hits, n_rays):
@@ -1405,6 +1464,149 @@ def brute_user_check(label, entry, flat: Rays, hits, n_rays):
                              f"{int((best != t_k).sum())} of {n_rays} rays")
     log(f"  {label}: brute force over all {entry.accel.num_prims} segments, "
         f"{n_rays} rays: t equal ({int(torch.isfinite(best).sum())} hits)")
+
+
+def nan_lanes(org, d):
+    """The bad lanes of tests/test_torch_robust.py in the first six rays:
+    a NaN origin, a NaN direction, an Inf direction, a zero direction, a
+    NaN in one origin and in one direction component."""
+    org, d = org.copy(), d.copy()
+    org[0] = np.nan
+    d[1] = np.nan
+    d[2] = np.inf
+    d[3] = 0.0
+    org[4, 1] = np.nan
+    d[5, 2] = np.nan
+    return org, d
+
+
+def nan_lane_checks(device):
+    """Phase 3f: rays with NaN and Inf lanes (and, for B6, times of NaN,
+    +-Inf and -0.5) through all ten kernel entries, each held against its
+    plain version at 0 ulp with equal counters; the bad lanes miss (B5,
+    as the JAX package, reports the Inf-direction lane occluded). Returns
+    {kernel name: max abs err of t}."""
+    rng = np.random.default_rng(0xBAD)
+    n = 1024
+    err = {}
+
+    def lane_rays(extent, aim=None):
+        org = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+        d = unit_dirs(rng, n)
+        if aim is not None:
+            d[::2] = aim(n)[::2] - org[::2]
+        return ett.make_rays(*nan_lanes(org, d), device=device)
+
+    def zero(name, e):
+        if e != 0.0:
+            raise AssertionError(f"{name}: t {e:g} off its plain version")
+        err[name] = max(err.get(name, 0.0), e)
+
+    def misses(name, hit):
+        if hit[:6].any():
+            raise AssertionError(f"{name}: a NaN or Inf lane hit: "
+                                 f"{hit[:6].tolist()}")
+
+    verts, idx = random_triangles(rng, 300, extent=5.0, size=1.2)
+    v = np.asarray(verts, np.float32)[np.asarray(idx)]
+    rays = lane_rays(6.0, lambda k: v[rng.integers(0, len(v), k)].mean(1))
+    ts = build_treelet_scene(v[:, 0], v[:, 1], v[:, 2], np.arange(len(idx)),
+                             fan=8).to_device(device)
+    ps = packed_scene(verts, idx, 4, device)
+    for occl in (False, True):
+        mode = "occluded" if occl else "closest"
+        zero("rowtrace2", compare_kernel_plain(
+            ts, rays, occl, False, f"rowtrace2 {mode}, NaN/Inf lanes")[0])
+        t, p = rt2.intersect_rowtrace2(ts, rays, occluded=occl)
+        misses("rowtrace2", (t == -math.inf) | (p >= 0))
+        zero("packet", compare_packet_plain(
+            ps, rays, occl, False, f"packet {mode}, NaN/Inf lanes")[0])
+        t, p, _ = pk.packet_trace(ps, rays, occl)
+        misses("packet", (t == -math.inf) | (p >= 0))
+    cv, cc, ci = subdiv_cube()
+    pc = subdiv_scene("", (cv, cc, ci, None), (3, 2),
+                      "leaf").committed.compressed_kernel
+    crays = lane_rays(3.0, lambda k: np.zeros((k, 3), np.float32))
+    e, _, _, occ_err = compare_cbvh_plain(pc, crays,
+                                          "cbvh leaf, NaN/Inf lanes")
+    zero("cbvh", e)
+    zero("cbvh_occluded", occ_err)
+    misses("cbvh", ck.cbvh_trace(pc, crays)[3] >= 0)
+    occ = ck.cbvh_occluded_trace(pc, crays)[0]
+    misses("cbvh_occluded", occ[[0, 1, 3, 4, 5]])
+    if not occ[2]:
+        raise AssertionError("cbvh_occluded: the Inf lane is no longer "
+                             "occluded, unlike the JAX package")
+    v2, idx2 = triangle_sphere((0.0, 0.0, 0.0), 2.0, 24)
+    mbs = ett.Scene(ett.Device("ignore_config_files=1"))
+    mbs.attach(ett.TriangleMeshMB(indices=idx2, timesteps=[v2] + [
+        v2 + np.float32(k) for k in MB_KNOTS]))
+    pm = mbs.commit().mb_kernel
+    mrays = lane_rays(4.0, lambda k: np.zeros((k, 3), np.float32))
+    tm = rng.uniform(0, 1, n).astype(np.float32)
+    tm[6:10] = (np.nan, np.inf, -np.inf, -0.5)
+    times = torch.from_numpy(tm).to(device)
+    e, _, _, _, occ_err = compare_mb_plain(pm, mrays, times,
+                                           "mb, NaN/Inf lanes and times")
+    zero("mb", e)
+    zero("mb_occluded", occ_err)
+    t, p, _ = mk.mb_trace(pm, mrays, times)
+    misses("mb", p >= 0)
+    if p[6] >= 0:
+        raise AssertionError("mb: the NaN-time lane hit")
+    for flat in (False, True):
+        hv, hi = hair_ball(rng, 60)
+        hsc = ett.Scene(ett.Device("ignore_config_files=1"))
+        hsc.attach(ett.BezierCurves(hv, hi, tessellation_rate=4, flat=flat))
+        hcs_ = hsc.commit()
+        seg = world_segments(hcs_).cpu().numpy()
+        hrays = lane_rays(2.5, lambda k: seg[rng.integers(0, len(seg), k),
+                                             :3])
+        leaf = "ribbon" if flat else "cone"
+        e = compare_hair_plain(hcs_.hair_set.packed, hrays,
+                               f"hair {leaf}, NaN/Inf lanes")[0]
+        zero(f"hair_{leaf}", e)
+        zero(f"hair_{leaf}_occluded", 0.0)
+        t, s, _c, _ = hk.hair_set_trace(hcs_.hair_set.packed, hrays)
+        misses(f"hair_{leaf}", s >= 0)
+    return err
+
+
+def watertight_checks(device):
+    """Phase 3g: tests/test_watertight_matrix.py's triangle and MB-triangle
+    cases at the reference's 100,000 rays from inside the sphere, through
+    the scene's kernels B2 and B6: no ray may miss."""
+    rng = np.random.default_rng(0x3A7)
+    n = 100_000
+    d = unit_dirs(rng, n)
+    rays = ett.make_rays(np.zeros((n, 3), np.float32), d, device=device)
+    verts, idx = triangle_sphere((0.0, 0.0, 0.0), 2.0, 60)
+    sc = ett.Scene(ett.Device("ignore_config_files=1"))
+    sc.attach(ett.TriangleMesh(verts, idx))
+    sc.commit()
+    with Launches() as lc:
+        h = sc.intersect(rays)
+        torch.cuda.synchronize()
+    lc.expect("watertight triangles", 0, 1)
+    verts, idx = triangle_sphere((0.0, 0.0, 0.0), 2.0, 40)
+    ms = ett.Scene(ett.Device("ignore_config_files=1"))
+    ms.attach(ett.TriangleMeshMB(verts, verts + np.float32([0.3, 0, 0]),
+                                 idx))
+    ms.commit()
+    times = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(
+        device)
+    with Launches() as lc:
+        hm = ms.intersect(rays, time=times)
+        torch.cuda.synchronize()
+    lc.expect_mb("watertight motion blur", 1, 0)
+    miss, miss_mb = int((~h.valid).sum()), int((~hm.valid).sum())
+    if miss or miss_mb:
+        raise AssertionError(f"watertight: {miss} of {n} rays missed the "
+                             f"triangle sphere (B2), {miss_mb} the MB "
+                             "sphere (B6)")
+    log(f"  {n} rays from inside triangle_sphere(60) through B2 and "
+        f"inside the moving triangle_sphere(40) at random times through "
+        f"B6: 0 misses each")
 
 
 def grid_triangles(tiles):
@@ -1470,6 +1672,11 @@ def main() -> int:
         dev.device)
     log("[3e] hair kernel B3 vs plain version on small scenes")
     hair_small_err = hair_small_scene_checks(dev.device)
+    log("[3f] NaN and Inf lanes through all ten kernel entries vs their "
+        "plain versions")
+    lane_err = nan_lane_checks(dev.device)
+    log("[3g] watertight: rays from inside closed spheres through B2 and B6")
+    watertight_checks(dev.device)
     if args.quick:
         log("--quick: stopping before the full-size phases")
         return 0
@@ -2229,12 +2436,15 @@ def main() -> int:
     log(f"  2^{LOG2_RAYS} rays: hit fraction {frac:.4f} "
         f"({float((h_hair.geom_id == 1).float().mean()):.4f} on hair); "
         f"{FRAME[0]}x{FRAME[1]} frame: {frac_fr:.4f} ({on_hair:.4f} on "
-        f"hair); occluded == valid; {len(hcs.hairs)} B3 launches a request")
+        f"hair); occluded == valid; 1 B3 launch a request over "
+        f"{len(hcs.hairs)} clusters")
 
     # -- 18. the hair path: correctness at full size --------------------------
     log("[18] hair path: correctness at full size")
     hm_err, hm_plain_ms, hmo_plain_ms = hair_full_checks(
         "main-hair", hcs, rays)
+    check_fold_equal(f"main-hair, 2^{LOG2_RAYS} incoherent", hcs, rays)
+    check_fold_equal(f"main-hair, {FRAME[0]}x{FRAME[1]} frame", hcs, hframe)
     hair_brute_check("main-hair, incoherent", hcs, rays, HAIR_BRUTE_RAYS)
     hair_brute_check("main-hair, frame", hcs, hframe, HAIR_BRUTE_RAYS)
 
@@ -2274,6 +2484,7 @@ def main() -> int:
         f"launches for one intersect and one occluded request")
     hb_err, hb_plain_ms, hbo_plain_ms = hair_full_checks(
         "hairball-flat", fcs, rays)
+    check_fold_equal(f"hairball-flat, 2^{LOG2_RAYS} incoherent", fcs, rays)
     hair_brute_check("hairball-flat", fcs, rays, HAIR_BRUTE_RAYS)
 
     # -- 20. small curve scenes: segments, soups, motion blur -----------------
@@ -2416,15 +2627,16 @@ def main() -> int:
     # bound_ms belong to the 2^21 incoherent rays at random times on
     # main-mb, plain_ms to their first 2^16 rays; mb_occluded's
     # max_abs_err counts the rays whose answer differs. hair_cone(_occluded)
-    # and hair_ribbon(_occluded): ms and bound_ms belong to one launch a
-    # cluster over the 2^21 incoherent rays on main-hair (cone) and
-    # hairball-flat (ribbon), plain_ms to their first 2^16 rays
+    # and hair_ribbon(_occluded): ms and bound_ms belong to the one launch
+    # over every cluster of main-hair (cone) and hairball-flat (ribbon) for
+    # the 2^21 incoherent rays, plain_ms to their first 2^16 rays. Every
+    # max_abs_err includes phase 3f's NaN and Inf lanes
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
         "replaces": "embree_tpu/traverse/rowtrace2.py:153",
         "launches": Launches.totals["rowtrace2"],
-        "max_abs_err": max(small_err, full_err),
+        "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": nb1,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -2433,7 +2645,8 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/packet.cu",
         "replaces": "embree_tpu/traverse/pallas_packet.py:261",
         "launches": Launches.totals["packet"],
-        "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err),
+        "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
+                           lane_err["packet"]),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
         "plain_rays": nb2,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],
@@ -2444,7 +2657,7 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/cbvh.cu",
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:175",
         "launches": Launches.totals["cbvh"],
-        "max_abs_err": max(cb_small_err, cb_full_err),
+        "max_abs_err": max(cb_small_err, cb_full_err, lane_err["cbvh"]),
         "ms": cb_inc["closest"]["ms"], "plain_ms": cb_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["closest"]["bound"]["bound_ms"],
@@ -2455,7 +2668,8 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/cbvh.cu",
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:771",
         "launches": Launches.totals["cbvh_occluded"],
-        "max_abs_err": max(cbo_small_err, cbo_full_err),
+        "max_abs_err": max(cbo_small_err, cbo_full_err,
+                           lane_err["cbvh_occluded"]),
         "ms": cb_inc["occluded"]["ms"], "plain_ms": cbo_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["occluded"]["bound"]["bound_ms"],
@@ -2466,7 +2680,7 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/mb.cu",
         "replaces": "embree_tpu/traverse/pallas_mb.py:120",
         "launches": Launches.totals["mb"],
-        "max_abs_err": max(mb_small_err, mb_full_err),
+        "max_abs_err": max(mb_small_err, mb_full_err, lane_err["mb"]),
         "ms": mb_inc["closest"]["ms"], "plain_ms": mb_plain_ms,
         "plain_rays": nmb,
         "bound_ms": mb_inc["closest"]["bound"]["bound_ms"],
@@ -2477,7 +2691,8 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/mb.cu",
         "replaces": "embree_tpu/traverse/pallas_mb.py:120",
         "launches": Launches.totals["mb_occluded"],
-        "max_abs_err": max(mbo_small_err, mbo_full_err),
+        "max_abs_err": max(mbo_small_err, mbo_full_err,
+                           lane_err["mb_occluded"]),
         "ms": mb_inc["occluded"]["ms"], "plain_ms": mbo_plain_ms,
         "plain_rays": nmb,
         "bound_ms": mb_inc["occluded"]["bound"]["bound_ms"],
@@ -2488,7 +2703,8 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/packet.cu",
         "replaces": f"embree_tpu/traverse/pallas_hair.py:{line}",
         "launches": Launches.totals[f"hair_{leaf}{suffix}"],
-        "max_abs_err": max(hair_small_err[leaf], full_err_),
+        "max_abs_err": max(hair_small_err[leaf], full_err_,
+                           lane_err[f"hair_{leaf}{suffix}"]),
         "ms": res[mode]["ms"], "plain_ms": plain_,
         "plain_rays": 1 << HAIR_PLAIN_LOG2,
         "bound_ms": res[mode]["bound"]["bound_ms"],

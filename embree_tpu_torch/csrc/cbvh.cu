@@ -103,6 +103,30 @@ __device__ __forceinline__ float rcp_safe(float a) {
   return (fabsf(a) < EPS) ? (a < 0.0f ? -1e30f : 1e30f) : 1.0f / a;
 }
 
+// min / max that return NaN when either argument is NaN, as the plain
+// version's torch.minimum / maximum / clamp_min do (fminf / fmaxf drop
+// it); one PTX instruction on the card, a portable form in a host
+// compiler's pass
+__device__ __forceinline__ float minp(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? a + b : fminf(a, b);
+#endif
+}
+
+__device__ __forceinline__ float maxp(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+#endif
+}
+
 __device__ __forceinline__ float clamp_den(float a) {
   return fabsf(a) < EPS ? EPS : a;
 }
@@ -166,11 +190,11 @@ __device__ __forceinline__ void top_slab(const float* f, int c, const Ray& r,
   const float ty1 = f[16 + c] * r.rdy - r.ory;
   const float tz0 = f[8 + c] * r.rdz - r.orz;
   const float tz1 = f[20 + c] * r.rdz - r.orz;
-  tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1)) *
+  tmin = maxp(maxp(minp(tx0, tx1), minp(ty0, ty1)), minp(tz0, tz1)) *
          ROBUST_MIN;
-  tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1)) *
+  tmax = minp(minp(maxp(tx0, tx1), maxp(ty0, ty1)), maxp(tz0, tz1)) *
          ROBUST_MAX;
-  tmin = fmaxf(tmin, r.tnear);
+  tmin = maxp(tmin, r.tnear);
 }
 
 // Stable bubble network over four (key, ref) pairs, far to near.
@@ -212,11 +236,11 @@ __device__ __forceinline__ void tile_slab(const TileRay& q, float lx, float ly,
   const float ty1 = hy * q.prdy - q.pory;
   const float tz0 = lz * q.prdz - q.porz;
   const float tz1 = hz * q.prdz - q.porz;
-  tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1)) *
+  tmin = maxp(maxp(minp(tx0, tx1), minp(ty0, ty1)), minp(tz0, tz1)) *
          ROBUST_MIN;
-  tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1)) *
+  tmax = minp(minp(maxp(tx0, tx1), maxp(ty0, ty1)), maxp(tz0, tz1)) *
          ROBUST_MAX;
-  tmin = fmaxf(tmin, 0.0f);
+  tmin = maxp(tmin, 0.0f);
 }
 
 // Tile-local distance back to world distance.
@@ -279,7 +303,7 @@ __device__ __forceinline__ bool moeller(const float* a, const float* b,
   const bool ok = (den != 0.0f) && (u_s >= 0.0f) && (v_s >= 0.0f) &&
                   (u_s + v_s <= absden) && (absden * r.tnear < t_s) &&
                   (t_s <= absden * t);
-  const float rcp = 1.0f / fmaxf(absden, 1e-37f);
+  const float rcp = 1.0f / maxp(absden, 1e-37f);
   t_out = t_s * rcp;
   u_out = u_s * rcp;
   v_out = v_s * rcp;
@@ -412,13 +436,13 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       const bool v1y = iline(p00x, p00y, p10x, p10y, q.lox, q.loy, ldx, ldy, t1y);
       const bool v2y = iline(p01x, p01y, p11x, p11y, q.lox, q.loy, ldx, ldy, t2y);
       const float near1 =
-          fminf(fminf(v1x ? t1x : INFINITY, v2x ? t2x : INFINITY),
-                fminf(v1y ? t1y : INFINITY, v2y ? t2y : INFINITY));
+          minp(minp(v1x ? t1x : INFINITY, v2x ? t2x : INFINITY),
+                minp(v1y ? t1y : INFINITY, v2y ? t2y : INFINITY));
       const float far1 =
-          fmaxf(fmaxf(v1x ? t1x : -INFINITY, v2x ? t2x : -INFINITY),
-                fmaxf(v1y ? t1y : -INFINITY, v2y ? t2y : -INFINITY));
-      q.near = fmaxf(fmaxf(fminf(t1z, t2z), near1), r.tnear);
-      far = fminf(fminf(fmaxf(t1z, t2z), far1), t);
+          maxp(maxp(v1x ? t1x : -INFINITY, v2x ? t2x : -INFINITY),
+                maxp(v1y ? t1y : -INFINITY, v2y ? t2y : -INFINITY));
+      q.near = maxp(maxp(minp(t1z, t2z), near1), r.tnear);
+      far = minp(minp(maxp(t1z, t2z), far1), t);
       const bool alive = (q.near <= far) && (v1x || v2x || v1y || v2y);
       if (!alive) continue;
     }
@@ -454,7 +478,7 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
                         (az < G_EPS);
       q.flat = !tiny && (az < G_EPS);
       const float dlen = sqrtf(dxx * dxx + dyy * dyy + dzz * dzz);
-      const float inv = 1.0f / fmaxf(dlen, EPS);
+      const float inv = 1.0f / maxp(dlen, EPS);
       const float sgnz = ldz >= 0.0f ? 1.0f : -1.0f;
       q.pdx = tiny ? 0.0f : dxx * inv;
       q.pdy = tiny ? 0.0f : dyy * inv;
@@ -589,8 +613,8 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
 
       if (MODE == MODE_BOX) {
         // the reconstructed box is the surface (:614-656)
-        const float dimx = fmaxf(bhx - blx, EPS);
-        const float dimy = fmaxf(bhy - bly, EPS);
+        const float dimx = maxp(bhx - blx, EPS);
+        const float dimy = maxp(bhy - bly, EPS);
         u = ((q.pox + q.pdx * tmin - blx) / dimx + mx) * rcp_edges;
         v = ((q.poy + q.pdy * tmin - bly) / dimy + my) * rcp_edges;
         t = world_t(h, q, tmin);
@@ -618,8 +642,8 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       const float p1z = q.poz + tmin * q.pdz;
       const float p2x = q.pox + tmax * q.pdx, p2y = q.poy + tmax * q.pdy;
       const float p2z = q.poz + tmax * q.pdz;
-      const float lenx = 1.0f / fmaxf(bhx - blx, EPS);
-      const float leny = 1.0f / fmaxf(bhy - bly, EPS);
+      const float lenx = 1.0f / maxp(bhx - blx, EPS);
+      const float leny = 1.0f / maxp(bhy - bly, EPS);
       const float fx1 = (p1x - blx) * lenx, fy1 = (p1y - bly) * leny;
       const float fx2 = (p2x - blx) * lenx, fy2 = (p2y - bly) * leny;
       const bool degen = (tmax - tmin) < 1e-6f;
@@ -637,7 +661,7 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       const float beta = z1s - p1z;
       const float den = clamp_den(alpha + beta);
       const float tsec = (tmin * alpha + tmax * beta) / den;
-      const float dfr = (tsec - tmin) / fmaxf(tmax - tmin, EPS);
+      const float dfr = (tsec - tmin) / maxp(tmax - tmin, EPS);
       const bool sec_ok = (tsec < tloc) && (tsec >= tmin) && (tsec <= tmax);
       const bool first = degen || between;
       if (!(first || sec_ok)) continue;

@@ -43,18 +43,31 @@
 // shared-memory stack and a layout without the 384 unused bytes of a
 // node row are later work. PERF.md has the measured times and the bound.
 //
-// Kernel B3 (hair) is the same walk with curve leaves: the template's LEAF
-// argument selects the triangle leaf above (TRI, kernel B2) or a leaf row
-// of 16 segments x [p0 p1 r0 r1] tested with the swept-cone quadratic
-// (CONE) or the ribbon closest approach (RIBBON), the JAX package's
-// pallas_hair.py::_cone_leaf_test / _ribbon_leaf_test operation for
-// operation. Both accept `th < t` strictly, so an earlier segment keeps an
-// equal t. `hair_launch` is their entry; the TRI instantiations are the
-// code B2 had before B3 joined it. A hair cluster's BVH is built in the
-// cluster's rotated frame and the wrapper hands the rays in already
-// rotated. B3 is bounded the same way as B2 (bytes, and in practice the
-// latency of dependent loads); a cone test is ~60 float32 operations
-// with three divisions and a square root, a ribbon test ~55.
+// Kernel B3 (hair) is the same walk with curve leaves: the walk is one
+// device function, `walk`, whose LEAF argument selects the triangle leaf
+// above (TRI, kernel B2) or a leaf row of 16 segments x [p0 p1 r0 r1]
+// tested with the swept-cone quadratic (CONE) or the ribbon closest
+// approach (RIBBON), the JAX package's pallas_hair.py::_cone_leaf_test /
+// _ribbon_leaf_test operation for operation. Both accept `th < t`
+// strictly, so an earlier segment keeps an equal t. `hair_kernel` walks
+// every cluster of a scene's packed set (all clusters' node and segment
+// rows concatenated, each cluster's row bases and its 3x3 rotation) in
+// one launch: a ray reads its origin, direction, tnear and tfar once,
+// then for each cluster in order rotates itself into the cluster's frame
+// (the products of traverse/hair_kernel.py's rotation summed left to
+// right, as core/math.py::rows_times sums them) and walks the cluster's
+// BVH from its running t; it returns (t, slot, cluster). An any-hit ray
+// stops at the first cluster that hits. The bases and rotations of the
+// launch's clusters are staged in shared memory. `hair_set_launch` is its
+// entry; the TRI instantiations of `packet_kernel` are the code B2 had
+// before B3 joined it. B3 is bounded the same way as B2 (bytes, and in
+// practice the latency of dependent loads); a cone test is ~60 float32
+// operations with three divisions and a square root, a ribbon test ~55.
+//
+// The slab test's min and max propagate NaN (PTX min.NaN / max.NaN), as
+// torch.minimum / maximum do in the plain version: a ray with a NaN
+// origin or direction component, or one that a rotation turns NaN, fails
+// every slab test on both sides.
 //
 // Build with -fmad=false: the plain PyTorch version rounds every product
 // before it is added, and the two are held equal bit for bit. Division and
@@ -77,6 +90,9 @@ constexpr int THREADS = 128;
 constexpr int SENT = INT_MIN;      // "child not pushed"
 
 constexpr int SEGS_PER_ROW = 16;   // hair leaf rows
+// clusters a hair_set_launch walks: their bases and rotations fill 44 B of
+// shared memory each, within the 48 KB a block gets without an opt-in
+constexpr int MAX_HAIR_CLUSTERS = 1024;
 constexpr int SEG_FLOATS = 8;      // p0 p1 r0 r1
 
 enum Leaf { TRI = 0, CONE = 1, RIBBON = 2 };
@@ -92,6 +108,52 @@ struct Ray {
 
 __device__ __forceinline__ float rcp_safe(float a) {
   return (fabsf(a) < 1e-30f) ? (a < 0.0f ? -1e30f : 1e30f) : 1.0f / a;
+}
+
+// min / max that return NaN when either argument is NaN
+// (torch.minimum / torch.maximum), unlike fminf / fmaxf; one PTX
+// instruction on the card, a portable form in a host compiler's pass
+__device__ __forceinline__ float minp(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? a + b : fminf(a, b);
+#endif
+}
+
+__device__ __forceinline__ float maxp(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+#endif
+}
+
+// per-thread counters of the counting build
+struct Counters {
+  unsigned nodes = 0, leaves = 0, tris = 0, drops = 0;
+};
+
+__device__ __forceinline__ void set_ray(Ray& r, float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float tnear) {
+  r.ox = ox;
+  r.oy = oy;
+  r.oz = oz;
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
+  r.rdx = rcp_safe(dx);
+  r.rdy = rcp_safe(dy);
+  r.rdz = rcp_safe(dz);
+  r.orx = ox * r.rdx;
+  r.ory = oy * r.rdy;
+  r.orz = oz * r.rdz;
+  r.tnear = tnear;
 }
 
 // Swept-cone segment (line_intersector.h cone; pallas_hair.py:41-76):
@@ -167,46 +229,18 @@ __device__ __forceinline__ bool ribbon_hit(const Ray& r, float4 a, float4 b,
   return dist2 <= rad * rad && th > r.tnear && th < t;
 }
 
+// The walk of one ray through one BVH: `t` and `prim` in and out (prim
+// the BVH slot of the winning triangle or segment; any-hit rays set t to
+// -inf and leave prim), counters into `n` in the counting build.
 template <int W, bool OCCLUDED, bool STATS, int LEAF>
-__global__ void __launch_bounds__(THREADS)
-packet_kernel(const float* __restrict__ nodes,     // (M, 128)
-              const float* __restrict__ tdata,     // (rows, 128)
-              const int* __restrict__ prim_mask,   // (T,) BVH order or null
-              const int* __restrict__ ray_mask,    // (R,) or null
-              int cull,
-              const float* __restrict__ org,       // (R, 3)
-              const float* __restrict__ dir,       // (R, 3)
-              const float* __restrict__ tnear,
-              const float* __restrict__ tfar, long long num_rays,
-              float* __restrict__ t_out, int* __restrict__ prim_out,
-              unsigned long long* __restrict__ stats,  // [4], STATS only
-              int* __restrict__ node_touched,      // [M], STATS only
-              int* __restrict__ row_touched) {     // [rows], STATS only
+__device__ __forceinline__ void walk(const float* __restrict__ nodes,
+                                     const float* __restrict__ tdata,
+                                     const int* __restrict__ prim_mask,
+                                     int rmask, int cull, const Ray& r,
+                                     float& t, int& prim, Counters& n,
+                                     int* __restrict__ node_touched,
+                                     int* __restrict__ row_touched) {
   constexpr int STACK = (W - 1) * MAX_DEPTH + 1;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= num_rays) return;
-
-  Ray r;
-  r.ox = org[3 * i + 0];
-  r.oy = org[3 * i + 1];
-  r.oz = org[3 * i + 2];
-  r.dx = dir[3 * i + 0];
-  r.dy = dir[3 * i + 1];
-  r.dz = dir[3 * i + 2];
-  r.rdx = rcp_safe(r.dx);
-  r.rdy = rcp_safe(r.dy);
-  r.rdz = rcp_safe(r.dz);
-  r.orx = r.ox * r.rdx;
-  r.ory = r.oy * r.rdy;
-  r.orz = r.oz * r.rdz;
-  r.tnear = tnear[i];
-  const int rmask = ray_mask != nullptr ? ray_mask[i] : -1;
-
-  float t = tfar[i];
-  int prim = -1;
-  unsigned n_nodes = 0, n_leaves = 0, n_tris = 0, n_drops = 0;
-
   int sref[STACK];
   float sdist[STACK];
   int sp = 1;
@@ -221,7 +255,7 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
     if (ref >= 0) {
       // ---- inner node: the used part of the row is 8 * W floats
       if (STATS) {
-        n_nodes += 1;
+        n.nodes += 1;
         node_touched[ref] = 1;
       }
       const float4* row =
@@ -248,11 +282,11 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
         const float ty1 = f[4 * W + c] * r.rdy - r.ory;
         const float tz0 = f[2 * W + c] * r.rdz - r.orz;
         const float tz1 = f[5 * W + c] * r.rdz - r.orz;
-        float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                           fminf(tz0, tz1)) * ROBUST_MIN;
-        const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                                 fmaxf(tz0, tz1)) * ROBUST_MAX;
-        tmin = fmaxf(tmin, r.tnear);
+        float tmin = maxp(maxp(minp(tx0, tx1), minp(ty0, ty1)),
+                          minp(tz0, tz1)) * ROBUST_MIN;
+        const float tmax = minp(minp(maxp(tx0, tx1), maxp(ty0, ty1)),
+                                maxp(tz0, tz1)) * ROBUST_MAX;
+        tmin = maxp(tmin, r.tnear);
         // child and count are exact small floats in the row
         const int cc = static_cast<int>(f[6 * W + c]);
         const int cnt = static_cast<int>(f[7 * W + c]);
@@ -286,7 +320,7 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
           } else if (STATS) {
             // unreachable for a tree of at most MAX_DEPTH levels, which
             // the wrapper checks; counted all the same
-            n_drops += 1;
+            n.drops += 1;
           }
         }
       }
@@ -295,12 +329,12 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
       const int v = -ref - 1;
       const int start = v >> 4;
       const int cnt = min(v & 15, MAX_LEAF);
-      if (STATS) n_leaves += 1;
+      if (STATS) n.leaves += 1;
       for (int k = 0; k < cnt; ++k) {
         const int p = start + k;
         const int srow = p / SEGS_PER_ROW;
         if (STATS) {
-          n_tris += 1;
+          n.tris += 1;
           row_touched[srow] = 1;
         }
         const float4* g = reinterpret_cast<const float4*>(
@@ -330,12 +364,12 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
       const int v = -ref - 1;
       const int start = v >> 4;
       const int cnt = min(v & 15, MAX_LEAF);
-      if (STATS) n_leaves += 1;
+      if (STATS) n.leaves += 1;
       for (int k = 0; k < cnt; ++k) {
         const int p = start + k;
         const int trow = p / TRIS_PER_ROW;
         if (STATS) {
-          n_tris += 1;
+          n.tris += 1;
           row_touched[trow] = 1;
         }
         const float4* g = reinterpret_cast<const float4*>(
@@ -365,7 +399,8 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
         bool ok = front && (u_s >= 0.0f) && (v_s >= 0.0f) &&
                   (u_s + v_s <= absden) && (absden * r.tnear < t_s) &&
                   (t_s <= absden * t);
-        if (ok && prim_mask != nullptr) ok = (__ldg(prim_mask + p) & rmask) != 0;
+        if (ok && prim_mask != nullptr)
+          ok = (__ldg(prim_mask + p) & rmask) != 0;
         if (ok) {
           if (OCCLUDED) {
             t = -INFINITY;
@@ -379,13 +414,126 @@ packet_kernel(const float* __restrict__ nodes,     // (M, 128)
     }
   }
 
+}
+
+__device__ __forceinline__ void add_stats(unsigned long long* stats,
+                                          const Counters& n) {
+  atomicAdd(stats + 0, static_cast<unsigned long long>(n.nodes));
+  atomicAdd(stats + 1, static_cast<unsigned long long>(n.tris));
+  atomicAdd(stats + 2, static_cast<unsigned long long>(n.drops));
+  atomicAdd(stats + 3, static_cast<unsigned long long>(n.leaves));
+}
+
+template <int W, bool OCCLUDED, bool STATS, int LEAF>
+__global__ void __launch_bounds__(THREADS)
+packet_kernel(const float* __restrict__ nodes,     // (M, 128)
+              const float* __restrict__ tdata,     // (rows, 128)
+              const int* __restrict__ prim_mask,   // (T,) BVH order or null
+              const int* __restrict__ ray_mask,    // (R,) or null
+              int cull,
+              const float* __restrict__ org,       // (R, 3)
+              const float* __restrict__ dir,       // (R, 3)
+              const float* __restrict__ tnear,
+              const float* __restrict__ tfar, long long num_rays,
+              float* __restrict__ t_out, int* __restrict__ prim_out,
+              unsigned long long* __restrict__ stats,  // [4], STATS only
+              int* __restrict__ node_touched,      // [M], STATS only
+              int* __restrict__ row_touched) {     // [rows], STATS only
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= num_rays) return;
+  Ray r;
+  set_ray(r, org[3 * i + 0], org[3 * i + 1], org[3 * i + 2], dir[3 * i + 0],
+          dir[3 * i + 1], dir[3 * i + 2], tnear[i]);
+  const int rmask = ray_mask != nullptr ? ray_mask[i] : -1;
+  float t = tfar[i];
+  int prim = -1;
+  Counters n;
+  walk<W, OCCLUDED, STATS, LEAF>(nodes, tdata, prim_mask, rmask, cull, r, t,
+                                 prim, n, node_touched, row_touched);
   t_out[i] = t;
   prim_out[i] = prim;
+  if (STATS) add_stats(stats, n);
+}
+
+// Kernel B3 over clusters first .. first + count - 1 of a packed set, rays
+// in the world frame. bases (C, 4): a cluster's first node row, first
+// segment row, first slot and sub-segments a curve (the last two are the
+// finalize's); rots (C, 9): its rotation m, row-major, a point x going to
+// x_j = x0 * m[j] + x1 * m[3 + j] + x2 * m[6 + j]; null: no rotation (the
+// rays are in the cluster's frame). Dynamic shared memory holds the
+// launch's count x 11 words.
+template <bool OCCLUDED, bool STATS, int LEAF>
+__global__ void __launch_bounds__(THREADS)
+hair_kernel(const float* __restrict__ nodes,       // (all node rows, 128)
+            const float* __restrict__ sdata,       // (all segment rows, 128)
+            const int* __restrict__ bases,         // (C, 4)
+            const float* __restrict__ rots,        // (C, 9) or null
+            int first, int count,
+            const float* __restrict__ org,         // (R, 3)
+            const float* __restrict__ dir,         // (R, 3)
+            const float* __restrict__ tnear,
+            const float* __restrict__ tfar, long long num_rays,
+            float* __restrict__ t_out, int* __restrict__ slot_out,
+            int* __restrict__ cluster_out,
+            unsigned long long* __restrict__ stats,  // [5], STATS only
+            int* __restrict__ node_touched,        // [all nodes], STATS only
+            int* __restrict__ row_touched) {       // [all rows], STATS only
+  extern __shared__ float smem[];
+  float* srot = smem;                                     // count x 9
+  int* sbase = reinterpret_cast<int*>(smem + 9 * count);  // count x 2
+  for (int k = threadIdx.x; k < count; k += blockDim.x) {
+    sbase[2 * k + 0] = bases[4 * (first + k) + 0];
+    sbase[2 * k + 1] = bases[4 * (first + k) + 1];
+    if (rots != nullptr) {
+      for (int j = 0; j < 9; ++j) srot[9 * k + j] = rots[9 * (first + k) + j];
+    }
+  }
+  __syncthreads();
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= num_rays) return;
+
+  const float wx = org[3 * i + 0], wy = org[3 * i + 1], wz = org[3 * i + 2];
+  const float vx = dir[3 * i + 0], vy = dir[3 * i + 1], vz = dir[3 * i + 2];
+  const float tn = tnear[i];
+  float t = tfar[i];
+  int slot = -1, cluster = -1;
+  Counters n;
+  unsigned entered = 0;  // clusters this ray was rotated into and walked
+  for (int k = 0; k < count; ++k) {
+    if (OCCLUDED && t == -INFINITY) break;
+    if (STATS) ++entered;
+    Ray r;
+    if (rots != nullptr) {
+      const float* m = srot + 9 * k;
+      set_ray(r, wx * m[0] + wy * m[3] + wz * m[6],
+              wx * m[1] + wy * m[4] + wz * m[7],
+              wx * m[2] + wy * m[5] + wz * m[8],
+              vx * m[0] + vy * m[3] + vz * m[6],
+              vx * m[1] + vy * m[4] + vz * m[7],
+              vx * m[2] + vy * m[5] + vz * m[8], tn);
+    } else {
+      set_ray(r, wx, wy, wz, vx, vy, vz, tn);
+    }
+    const int nb = sbase[2 * k + 0], rb = sbase[2 * k + 1];
+    int s = -1;
+    walk<4, OCCLUDED, STATS, LEAF>(
+        nodes + static_cast<size_t>(nb) * ROW,
+        sdata + static_cast<size_t>(rb) * ROW, nullptr, -1, 0, r, t, s, n,
+        STATS ? node_touched + nb : nullptr,
+        STATS ? row_touched + rb : nullptr);
+    if (s >= 0) {
+      slot = s;
+      cluster = first + k;
+    }
+  }
+  t_out[i] = t;
+  slot_out[i] = slot;
+  cluster_out[i] = cluster;
   if (STATS) {
-    atomicAdd(stats + 0, static_cast<unsigned long long>(n_nodes));
-    atomicAdd(stats + 1, static_cast<unsigned long long>(n_tris));
-    atomicAdd(stats + 2, static_cast<unsigned long long>(n_drops));
-    atomicAdd(stats + 3, static_cast<unsigned long long>(n_leaves));
+    add_stats(stats, n);
+    atomicAdd(stats + 4, static_cast<unsigned long long>(entered));
   }
 }
 
@@ -443,28 +591,41 @@ extern "C" int packet_launch(const float* nodes, const float* tdata,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel B3: one hair cluster's BVH4 (node rows as above) over segment rows
-// `sdata` (16 x [p0 p1 r0 r1] a row, one zero pad row), rays in the
-// cluster's frame. `flat` selects the ribbon leaf over the cone leaf.
-// `slot_out` gets the BVH slot of the winning segment (-1 on a miss and for
-// any-hit rays). Launches on `stream`, returns cudaGetLastError(); `stats`,
-// `node_touched` and `row_touched` as for packet_launch (the counters are
-// node visits, segment tests, dropped pushes, leaf visits).
-extern "C" int hair_launch(const float* nodes, const float* sdata,
-                           const float* org, const float* dir,
-                           const float* tnear, const float* tfar,
-                           long long num_rays, float* t_out, int* slot_out,
-                           int flat, int occluded, unsigned long long* stats,
-                           int* node_touched, int* row_touched, void* stream) {
+// Kernel B3 over clusters first .. first + count - 1 of a packed hair set
+// (hair_kernel above): node rows as above, segment rows `sdata` (16 x
+// [p0 p1 r0 r1] a row, one zero pad row a cluster), `bases` (C, 4) and
+// `rots` (C, 9) or null. `flat` selects the ribbon leaf over the cone
+// leaf. `slot_out` gets the winning segment's slot within its cluster and
+// `cluster_out` that cluster (-1 on a miss and for any-hit rays).
+// `count` is at most MAX_HAIR_CLUSTERS. Launches on `stream`, returns
+// cudaGetLastError(); `stats` ([5]), `node_touched` and `row_touched`
+// (over the set's rows) as for packet_launch (the counters are node
+// visits, segment tests, dropped pushes, leaf visits, summed over the
+// clusters, and the clusters entered: a ray's rotations).
+extern "C" int hair_set_launch(const float* nodes, const float* sdata,
+                               const int* bases, const float* rots,
+                               int first, int count, const float* org,
+                               const float* dir, const float* tnear,
+                               const float* tfar, long long num_rays,
+                               float* t_out, int* slot_out, int* cluster_out,
+                               int flat, int occluded,
+                               unsigned long long* stats, int* node_touched,
+                               int* row_touched, void* stream) {
+  if (count < 0 || count > MAX_HAIR_CLUSTERS || first < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_rays <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid =
+      static_cast<unsigned>((num_rays + THREADS - 1) / THREADS);
+  const size_t shmem = static_cast<size_t>(count) * 11 * sizeof(float);
   const int variant = (flat ? 4 : 0) | (occluded ? 2 : 0) |
                       (stats != nullptr ? 1 : 0);
 #define HAIR_CASE(V, L, O, S)                                                \
   case V:                                                                    \
-    launch<4, O, S, L>(nodes, sdata, nullptr, nullptr, 0, org, dir, tnear,   \
-                       tfar, num_rays, t_out, slot_out, stats, node_touched, \
-                       row_touched, s);                                      \
+    hair_kernel<O, S, L><<<grid, THREADS, shmem, s>>>(                       \
+        nodes, sdata, bases, rots, first, count, org, dir, tnear, tfar,      \
+        num_rays, t_out, slot_out, cluster_out, stats, node_touched,         \
+        row_touched);                                                        \
     break;
   switch (variant) {
     HAIR_CASE(0, CONE, false, false)

@@ -54,10 +54,14 @@ torch-op traversal (traverse/cbvh.py). The motion-blur accel folds in
 last, at each ray's time (0 when `time` is None), starting from the t
 that the other accels left. The curve accels fold in after it, in the
 JAX package's order: motion-blur curves (at each ray's time), the hair
-clusters (one kernel B3 launch a cluster, rays rotated into the
-cluster's frame, starting from the running t), the segment soups. A
-curve hit carries gprim = -1. Occlusion ORs kernel B3's any-hit variant
-and the segment soups into the answer; the JAX package runs its
+clusters (one kernel B3 launch over all clusters of a leaf type, each
+ray rotated into each cluster's frame in the kernel and walked from its
+running t, the hits finalized once; a scene that mixes round and flat
+curves puts the first type's clusters first and makes a launch a type,
+so there a hit at exactly the t of a cluster of the other type can go
+to another curve than in the JAX package's scene order), the segment
+soups. A curve hit carries gprim = -1. Occlusion ORs kernel B3's any-hit
+variant and the segment soups into the answer; the JAX package runs its
 closest-hit walk there, which gives the same booleans. Ray masks act on
 triangles only.
 The JAX package stream-sorts
@@ -88,7 +92,6 @@ from ..build.refit import plan_refit, refit
 from ..build.sah import BuildSettings, build_sah
 from ..build.treelets import TreeletScene, build_treelet_scene, choose_fan
 from ..core.device import Device, Error, RaytracerError
-from ..core.math import rows_times
 from ..core.profile import global_profiler, profile_phase, trace
 from ..core.rayhit import Hits, Rays, miss_hits
 from ..subdiv.tessellate import tessellate_mesh_to_triangles
@@ -98,8 +101,9 @@ from ..traverse.cbvh_kernel import (PackedCompressed,
                                     intersect_compressed_kernel,
                                     occluded_compressed_kernel,
                                     pack_compressed)
-from ..traverse.hair_kernel import (PackedHair, intersect_hair_kernel,
-                                    occluded_hair_kernel, pack_hair_cluster)
+from ..traverse.hair_kernel import (PackedHair, PackedHairSet,
+                                    intersect_hair_set, occluded_hair_set,
+                                    pack_hair_cluster, pack_hair_set)
 from ..traverse.mb import MBAccel, MBCurves, intersect_mb_curves, ray_times
 from ..traverse.mb_kernel import PackedMB, intersect_mb_kernel, pack_mb
 from ..traverse.packet import _finalize_hits
@@ -156,6 +160,35 @@ class HairEntry(NamedTuple):
     packed: PackedHair        # kernel B3's accel, in the cluster frame
 
 
+class HairSet(NamedTuple):
+    """Every hair cluster of a scene packed for kernel B3 in one set, in
+    the order of `CommittedScene.hairs` (whose `packed` are views into
+    it), and what maps a hit back to its curve."""
+
+    packed: PackedHairSet
+    members: torch.Tensor      # every cluster's members, concatenated
+    member_base: torch.Tensor  # (C,) i64 first member of each cluster
+    gid: torch.Tensor          # (C,) i32 geometry of each cluster
+
+
+def hair_set(hairs):
+    """(HairSet, entries) of HairEntry clusters: the set in the entries'
+    order, and the entries re-pointed at views into it (one copy of the
+    packed rows on the device)."""
+    dev = hairs[0].members.device
+    packed = pack_hair_set([h.packed for h in hairs],
+                           [h.rot for h in hairs])
+    sizes = [h.members.numel() for h in hairs]
+    hs = HairSet(packed=packed,
+                 members=torch.cat([h.members for h in hairs]),
+                 member_base=torch.from_numpy(
+                     np.cumsum([0] + sizes[:-1])).to(dev),
+                 gid=torch.tensor([h.gid for h in hairs], dtype=torch.int32,
+                                  device=dev))
+    return hs, tuple(h._replace(packed=packed.cluster(c))
+                     for c, h in enumerate(hairs))
+
+
 class UserEntry(NamedTuple):
     """One segment-soup accel (LineSegments, or curves outside the OBB
     accel) walked by traverse/user.py."""
@@ -188,6 +221,7 @@ class CommittedScene(NamedTuple):
     hairs: tuple = ()                         # HairEntry a cluster
     users: tuple = ()                         # UserEntry a segment soup
     mb_curves: Optional[MBCurves] = None      # motion-blur curve accel
+    hair_set: Optional[HairSet] = None        # `hairs` packed in one set
 
     @property
     def device(self) -> torch.device:
@@ -448,6 +482,16 @@ class Scene:
                 hi_all = np.maximum(hi_all, chi)
             else:
                 lo_all, hi_all = clo, chi
+        # the hair clusters in one set for kernel B3, grouped by leaf type
+        # in the order the types first appear (one launch a type), each
+        # type's clusters in scene order; an equal-t tie across the types
+        # goes to the earlier group, not the earlier geometry
+        hset = None
+        if hairs:
+            kinds = list(dict.fromkeys(h.packed.flat for h in hairs))
+            hairs = sorted(hairs, key=lambda h: kinds.index(h.packed.flat))
+            hset, hairs = hair_set(hairs)
+        hairs = tuple(hairs)
         tri_patch_uv = None
         with profile_phase("scene.upload"):
             bvh = bvh_np.to_device(dev)
@@ -472,7 +516,8 @@ class Scene:
             backface_cull=bool(self.device.state.backface_culling),
             tri_patch_uv=tri_patch_uv, compressed=compressed,
             compressed_kernel=compressed_kernel, mb=mb, mb_kernel=mb_kernel,
-            hairs=tuple(hairs), users=tuple(users), mb_curves=mb_curves)
+            hairs=hairs, users=tuple(users), mb_curves=mb_curves,
+            hair_set=hset)
         self.device.memory_monitor(_scene_bytes(self.committed), True)
         self.build_time_s = time.perf_counter() - t0
         self._progress(1.0)
@@ -791,6 +836,17 @@ class Scene:
         return scene_occluded(cs, rays, isa=self.device.state.isa,
                               ray_mask=mask)
 
+    def interpolate(self, geom_id: int, prim_id, u, v, slot=None,
+                    derivatives: bool = False):
+        """rtcInterpolate analog (the JAX package's Scene.interpolate):
+        not ported yet, raises."""
+        raise _not_ported("Scene.interpolate")
+
+    def interpolate_normal(self, geom_id: int, prim_id, u, v):
+        """The smooth-normal fast path of `interpolate`: not ported yet,
+        raises."""
+        raise _not_ported("Scene.interpolate_normal")
+
     @property
     def bounds(self):
         cs = self._require_commit()
@@ -841,8 +897,11 @@ def _scene_bytes(cs: CommittedScene) -> int:
                  for a in list(cs.mb.bvh) + list(cs.mb[1:])
                  if a is not None)
         n += cs.mb_kernel.device_bytes
-    for h in cs.hairs:
-        n += h.packed.device_bytes + h.members.numel() * 4
+    if cs.hair_set is not None:
+        hs = cs.hair_set
+        n += hs.packed.device_bytes + sum(
+            a.numel() * a.element_size()
+            for a in (hs.members, hs.member_base, hs.gid))
     for u in cs.users:
         n += u.device_bytes + sum(a.numel() * a.element_size()
                                   for a in u.accel.bvh)
@@ -934,16 +993,20 @@ def _fold(hits: Hits, use, t, u, v, ng, prim_id, geom_id) -> Hits:
 
 
 def _fold_hair(cs: CommittedScene, flat: Rays, hits: Hits) -> Hits:
-    """The AccelN step for the hair clusters: each cluster's kernel B3
-    walk, rays rotated into its frame, starts from the running t; Ng is
-    rotated back (x @ rot.T)."""
-    for h in cs.hairs:
-        t, u, v, ng, m, hitm = intersect_hair_kernel(
-            h.packed, rows_times(flat.org, h.rot),
-            rows_times(flat.dir, h.rot), flat.tnear, hits.t.contiguous())
+    """The AccelN step for the hair clusters: one kernel B3 launch a leaf
+    type walks its clusters in order, each from the running t, the rays
+    rotated into each cluster's frame in the kernel, and the hits are
+    finalized once a launch (Ng rotated back); the result equals a fold
+    one cluster at a time."""
+    hs = cs.hair_set
+    for _flat, first, count in hs.packed.runs():
+        t, u, v, ng, m, cl, hitm = intersect_hair_set(
+            hs.packed, flat, hits.t.contiguous(), first, count)
+        c = cl.clamp_min(0).long()
         use = hitm & (t < hits.t)
-        hits = _fold(hits, use, t, u, v, rows_times(ng, h.rot.T),
-                     h.members[m.clamp_min(0).long()], h.gid)
+        hits = _fold(hits, use, t, u, v, ng,
+                     hs.members[hs.member_base[c] + m.clamp_min(0).long()],
+                     hs.gid[c])
     return hits
 
 
@@ -955,7 +1018,7 @@ def _fold_curves(cs: CommittedScene, flat: Rays, hits: Hits, tm) -> Hits:
         t, u, v, ng, prim, geom, hitm = intersect_mb_curves(
             cs.mb_curves, Rays(flat.org, flat.dir, flat.tnear, hits.t), tm)
         hits = _fold(hits, hitm, t, u, v, ng, prim, geom)
-    if cs.hairs:
+    if cs.hair_set is not None:
         hits = _fold_hair(cs, flat, hits)
     for e in cs.users:
         t, u, v, ng, prim, hitm = intersect_user(
@@ -1107,11 +1170,12 @@ def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
         occ = occ | occluded_compressed(cs.compressed, flat)
     # curves: rays already occluded are retired with tfar = -inf
     inf = torch.tensor(math.inf, dtype=torch.float32, device=cs.device)
-    for h in cs.hairs:
-        occ = occ | occluded_hair_kernel(
-            h.packed, rows_times(flat.org, h.rot),
-            rows_times(flat.dir, h.rot), flat.tnear,
-            torch.where(occ, -inf, flat.tfar))
+    if cs.hair_set is not None:
+        hs = cs.hair_set.packed
+        for _flat, first, count in hs.runs():
+            occ = occ | occluded_hair_set(hs, flat,
+                                          torch.where(occ, -inf, flat.tfar),
+                                          first, count)
     for e in cs.users:
         tf = torch.where(occ, -inf, flat.tfar)
         occ = occ | intersect_user(e.accel, e.intersect_fn,

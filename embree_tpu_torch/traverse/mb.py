@@ -11,38 +11,44 @@ two knots of the ray's segment.
 
 `walk_mb` is the per-ray walk, the function of the CUDA kernel
 csrc/mb.cu (traverse/mb_kernel.py) written in masked tensor ops, in the
-kernel's order of operations, so that the two agree bit for bit. For
-every ray on its own, with its own time:
+kernel's order of operations, so that the two agree bit for bit. It is
+kernel B2's walk (traverse/packet_kernel.py::plain_walk) with lerped
+boxes and lerped triangles. For every ray on its own, with its own
+time:
 
-  * time is clamped to [0, 1]; x = time * (S - 1); the segment is
-    seg = clip(int(x), 0, S - 2) and the weight w = x - seg;
-  * knot s is active when k1 >= time and k0 <= time, with
-    k0 = (s - 1) / (S - 1) and k1 = (s + 1) / (S - 1) float64 quotients
-    rounded to float32 (how the JAX package compares them);
-  * a stack of node refs, the root first; a popped node's children in
-    slot order: a child with count < 0 is skipped; the others are
-    slab-tested against the union of their active knot boxes (entry
-    scaled by 1 - 3*2^-23 and exit by 1 + 3*2^-23, exit -inf where the
-    union is empty along x, entry clamped to tnear; hit when
-    tmin <= tmax and tmin <= t) and gated by time_lo <= time <= time_hi;
-    an inner child that passes is pushed, a leaf child that passes is
-    tested at once, so child c sees the t that the leaves of children
-    0..c-1 left;
-  * a leaf's triangles in order: vertices lerped as
+  * time is clamped to [0, 1] (a NaN stays NaN); x = time * (S - 1);
+    the segment is seg = clip(int(x), 0, S - 2) (0 for a NaN) and the
+    weight w = x - seg;
+  * a stack of (ref, entry distance), the root first; a popped entry is
+    skipped when its distance exceeds the ray's t;
+  * a popped node's children: a child with count < 0 is skipped; the
+    others are slab-tested against their box lerped to the ray's time,
+    box[seg] * (1 - w) + box[seg + 1] * w (the linear bounds of
+    AlignedNodeMB; entry scaled by 1 - 3*2^-23 and exit by 1 + 3*2^-23,
+    entry clamped to tnear; hit when tmin <= tmax and tmin <= t) and
+    gated by time_lo <= time <= time_hi; the children that pass, inner
+    nodes and leaves alike, are pushed far to near by their entry
+    distance, the lower slot on top among equal distances;
+  * a popped leaf's triangles in order: vertices lerped as
     v[seg] * (1 - w) + v[seg + 1] * w, then the precomputed-cross Moeller
     test (e1 = v0 - v1, e2 = v2 - v0, Ng = e2 x e1) accepting
     `t_s <= |den| * t`, so a later triangle at equal t wins, and
     t = t_s / max(|den|, 1e-37);
   * an occlusion ray stops at its first hit with t = -inf and no prim.
 
-The JAX package's kernel walks a packet of 1,024 rays behind one stack
-and tests the union of the knots that meet the packet's whole time
-range; here a ray sees only its own knots, which is what the JAX
-package's kernel computes for a packet of one ray. Not carried over: its
-iteration cap (4,096 pops a packet), its 96-deep stack that drops pushes
-silently and its truncation of leaves beyond 8 triangles; here the stack
-holds what the tree can need, (W - 1) * depth + 1 entries, and a leaf is
-walked to its end.
+The box lerp is the vertex lerp, same expression and order, so a box
+that holds a triangle at both knots holds the lerped triangle exactly in
+floats (rounding is monotone; csrc/mb.cu says more). A NaN time fails
+every gate and misses.
+
+The JAX package's kernel walks a packet of 1,024 rays behind one stack,
+in slot order, and tests the union of the knot boxes that meet the
+packet's whole time range; here a ray sees its own segment and its
+nearest child first. Not carried over: its iteration cap (4,096 pops a
+packet), its 96-deep stack that drops pushes silently and its
+truncation of leaves beyond 8 triangles; here the stack holds what the
+tree can need, (W - 1) * depth + 1 entries, and a leaf is walked to its
+end.
 
 `intersect_mb` runs the walk over an `MBAccel`'s own tensors; the scene
 traces the packed rows instead (traverse/mb_kernel.py), which hold the
@@ -67,10 +73,14 @@ from ..core.math import (ROBUST_MAX_RCP as ROBUST_MAX,
 from ..core.rayhit import Hits, INVALID_ID, Rays
 from .hair import _cone_hit
 from .moeller import DEN_MIN, intersect_triangle
-from .packet_kernel import tree_depth
+from .packet_kernel import plain_walk, slab_tmin, tree_depth
 from .user import walk_shared
 
 PLAIN_CHUNK = 65536              # rays per lock-step batch
+# the most triangles a leaf may hold: a pushed leaf carries its count in
+# 4 bits (the builder makes leaves of at most 4, the packer refuses more
+# than 8, the kernel's limit)
+MAX_WALK_LEAF = 15
 _REFIND = float(np.float32(1.0 + 1e-6))
 _REFIND_EPS = float(np.float32(1e-30))
 
@@ -164,11 +174,12 @@ def ray_times(time, R: int, device) -> torch.Tensor:
 
 def new_counters(num_nodes=None, num_prims=None, device=None) -> dict:
     """Counters of one walk: sums over rays of nodes popped, child slab
-    tests, knot boxes read (a slab test reads one box a knot the ray's
-    time activates), triangles tested and dropped pushes; with sizes
-    given, which node rows and which triangles' rows were touched."""
-    cnt = {"nodes": 0, "slab_tests": 0, "knot_boxes": 0, "tri_tests": 0,
-           "drops": 0, "node_touched": None, "prim_touched": None}
+    tests, triangles tested, leaves popped and dropped pushes; with
+    sizes given, which node rows and which triangles' rows were
+    touched."""
+    cnt = {"nodes": 0, "slab_tests": 0, "tri_tests": 0,
+           "leaves": 0, "drops": 0, "node_touched": None,
+           "prim_touched": None}
     if num_nodes is not None:
         cnt["node_touched"] = torch.zeros(num_nodes, dtype=torch.bool,
                                           device=device)
@@ -177,99 +188,80 @@ def new_counters(num_nodes=None, num_prims=None, device=None) -> dict:
     return cnt
 
 
-class _Walk:
-    """State of one lock-step batch of `walk_mb`. A step pops one node a
-    ray and decides its W children in slot order; what does not depend
-    on the ray's running t (the slab distances of all children, the
-    lerped Moeller test of every triangle of its leaf children) is
-    computed for the whole node at once, the comparisons with t in
-    order. The counters are tensors until the end, so a step waits for
-    the device only to find the rays that are still walking."""
+def walk_mb(rows: MBRows, org, d, tn, tf, tm, occluded: bool, cnt: dict,
+            stack_depth: Optional[int] = None):
+    """The per-ray walk of flat rays at flat times `tm` (R,): (t, prim)
+    with prim the MB triangle index (-1 on a miss and for every
+    occlusion ray), PLAIN_CHUNK rays at a time through kernel B2's
+    lock-step walk (traverse/packet_kernel.py::plain_walk) with lerped
+    child boxes and lerped triangles. `cnt` (see `new_counters`) is
+    added to. A `stack_depth` below what the tree can need drops pushes,
+    which are counted."""
+    D = ((rows.W - 1) * rows.depth + 1 if stack_depth is None
+         else stack_depth)
+    big = int(rows.count.max()) if rows.count.numel() else 0
+    if big > MAX_WALK_LEAF:
+        raise ValueError(f"a leaf of {big} triangles: the walk serves at "
+                         f"most {MAX_WALK_LEAF}")
+    out_t, out_p = [], []
+    for s in range(0, max(tn.shape[0], 1), PLAIN_CHUNK):
+        e = s + PLAIN_CHUNK
+        t, prim = _walk_batch(rows, org[s:e], d[s:e], tn[s:e], tf[s:e],
+                              tm[s:e], bool(occluded), cnt, D)
+        out_t.append(t)
+        out_p.append(prim)
+    return torch.cat(out_t), torch.cat(out_p)
 
-    def __init__(self, rows: MBRows, org, d, tn, tf, tm, occluded, cnt,
-                 stack_depth):
-        n, dev = tn.shape[0], tn.device
-        self.rows, self.cnt, self.occluded = rows, cnt, occluded
-        self.counting = cnt["node_touched"] is not None
-        time = tm.clamp(0.0, 1.0)
-        x = time * float(rows.S - 1)
-        seg = x.to(torch.int32).clamp(0, max(rows.S - 2, 0))
-        rd = rcp_safe(d)
-        # the per-ray constants, gathered once a step: origin, direction,
-        # its reciprocal, origin * reciprocal, tnear, time, segment weight
-        self.ray = torch.cat([org, d, rd, org * rd, tn[:, None],
-                              time[:, None],
-                              (x - seg.to(torch.float32))[:, None]], dim=1)
-        k0, k1 = knot_ranges(rows.S, dev)
-        self.act = (k1[None] >= time[:, None]) & (k0[None] <= time[:, None])
-        self.seg_nact = torch.stack([seg.long(), self.act.sum(dim=1)], 1)
-        self.t = tf.clone()
-        self.prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        self.D = ((rows.W - 1) * rows.depth + 1 if stack_depth is None
-                  else stack_depth)
-        self.stack = torch.zeros((n, self.D), dtype=torch.long, device=dev)
-        self.sp = torch.ones(n, dtype=torch.long, device=dev)  # root pushed
-        # the most triangles a leaf of this tree holds
-        self.L = max(int(rows.count.max()), 1) if rows.count.numel() else 1
-        zero = torch.zeros((), dtype=torch.long, device=dev)
-        self.sums = {k: zero.clone() for k in
-                     ("slab_tests", "knot_boxes", "tri_tests", "drops")}
-        self.touched = (torch.zeros(cnt["prim_touched"].shape[0],
-                                    dtype=torch.long, device=dev)
-                        if self.counting else None)
 
-    def run(self):
-        while True:
-            a = (self.sp > 0).nonzero().squeeze(1)
-            if a.numel() == 0:
-                break
-            self._node(a)
-        for k, v in self.sums.items():
-            self.cnt[k] += int(v)
-        if self.counting:
-            self.cnt["prim_touched"] |= self.touched > 0
-        return self.t, self.prim
+def _walk_batch(rows: MBRows, org, d, tn, tf, tm, occluded, cnt, D):
+    W, S, dev = rows.W, rows.S, tn.device
+    time = tm.clamp(0.0, 1.0)                 # a NaN time stays NaN
+    x = time * float(S - 1)
+    seg = torch.where(x >= 0, x.to(torch.int32), 0).clamp(max=S - 2).long()
+    wgt = x - seg.to(torch.float32)
+    omw = 1.0 - wgt
+    rd = rcp_safe(d)
+    od = org * rd
+    L = max(int(rows.count.max()), 1) if rows.count.numel() else 1
+    kk = torch.arange(L, device=dev)
+    P = rows.prim_order.shape[0]
+    # the counters stay tensors until the end: a step then waits for the
+    # device only to find the rays that are still walking
+    sums = {k: torch.zeros((), dtype=torch.long, device=dev)
+            for k in ("slab_tests", "tri_tests")}
+    touched = (torch.zeros(cnt["prim_touched"].shape[0], dtype=torch.long,
+                           device=dev)
+               if cnt["prim_touched"] is not None else None)
 
-    def _node(self, a):
-        rows, W, L = self.rows, self.rows.W, self.L
-        self.sp[a] -= 1
-        node = self.stack[a, self.sp[a]]
-        self.cnt["nodes"] += a.numel()
-        if self.counting:
-            self.cnt["node_touched"][node] = True
-        ray = self.ray[a]
-        o, d, rd, od = (ray[:, 3 * i:3 * i + 3] for i in range(4))
-        tn, time, wgt = ray[:, 12], ray[:, 13], ray[:, 14]
-        seg, nact = self.seg_nact[a].unbind(1)
-        ch, cn = rows.child[node], rows.count[node]          # (k, W)
-        # the union of the active knot boxes and the slab test of every
-        # child, but for the comparison with t
-        act = self.act[a][:, :, None, None]
-        bx = rows.boxes[node]                               # (k, S, 6, W)
-        lo = torch.where(act, bx[:, :, :3], math.inf).amin(dim=1)
-        hi = torch.where(act, bx[:, :, 3:], -math.inf).amax(dim=1)
-        t0 = lo * rd[:, :, None] - od[:, :, None]           # (k, 3, W)
-        t1 = hi * rd[:, :, None] - od[:, :, None]
-        near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
-        tmin = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
-                             near[:, 2]) * ROBUST_MIN
-        tmax = torch.minimum(torch.minimum(far[:, 0], far[:, 1]),
-                             far[:, 2]) * ROBUST_MAX
-        tmax = torch.where(lo[:, 0] <= hi[:, 0], tmax, -math.inf)
-        tmin = torch.maximum(tmin, tn[:, None])
-        gate = rows.gates[node]                             # (k, 2, W)
-        passes = ((cn >= 0) & (tmin <= tmax) & (time[:, None] >= gate[:, 0])
-                  & (time[:, None] <= gate[:, 1]))
-        # every triangle of every leaf child, lerped at the ray's time,
-        # through the Moeller test but for the comparison with t
-        kk = torch.arange(L, device=a.device)
-        P = rows.prim_order.shape[0]
-        p = rows.prim_order[(ch[..., None] + kk).clamp(0, max(P - 1, 0))]
-        sg = seg[:, None, None]
-        w = wgt[:, None, None, None]
-        v = rows.tris[p, sg] * (1.0 - w) + rows.tris[p, sg + 1] * w
-        ox, oy, oz = o[:, None, None].unbind(-1)
-        dx, dy, dz = d[:, None, None].unbind(-1)
+    def lerp(a, b, r):
+        """a * (1 - w) + b * w for the rays `r`, broadcast over a's
+        trailing axes: the kernel's expression, box and vertex alike."""
+        sh = (-1,) + (1,) * (a.ndim - 1)
+        return a * omw[r].view(sh) + b * wgt[r].view(sh)
+
+    def children(na, node, t_na):
+        sg = seg[na]
+        box = lerp(rows.boxes[node, sg], rows.boxes[node, sg + 1], na)
+        tmin, tmax = slab_tmin(box[:, 0:3], box[:, 3:6], rd[na], od[na],
+                               tn[na])
+        cn = rows.count[node]
+        gate = rows.gates[node]                              # (k, 2, W)
+        tt = time[na, None]
+        ok = ((cn >= 0) & (tmin <= tmax) & (tmin <= t_na[:, None])
+              & (tt >= gate[:, 0]) & (tt <= gate[:, 1]))
+        sums["slab_tests"] += (cn >= 0).sum()
+        return tmin, ok, rows.child[node].to(torch.int32), cn.to(torch.int32)
+
+    def leaf(la, start, lcnt, t, prim, sp):
+        # every triangle of the popped leaves lerped and put through the
+        # Moeller test in one batch; only the comparisons with the
+        # running t go in slot order
+        p = rows.prim_order[(start[:, None] + kk).clamp(0, max(P - 1, 0))]
+        sg = seg[la][:, None]
+        v = lerp(rows.tris[p, sg], rows.tris[p, sg + 1], la)  # (k, L, 9)
+        o, dv = org[la][:, None], d[la][:, None]
+        ox, oy, oz = o.unbind(-1)
+        dx, dy, dz = dv.unbind(-1)
         v0x, v0y, v0z = v[..., 0], v[..., 1], v[..., 2]
         e1x, e1y, e1z = v0x - v[..., 3], v0y - v[..., 4], v0z - v[..., 5]
         e2x, e2y, e2z = v[..., 6] - v0x, v[..., 7] - v0y, v[..., 8] - v0z
@@ -286,77 +278,39 @@ class _Walk:
         u_s = (rx * e2x + ry * e2y + rz * e2z) * sgn
         v_s = (rx * e1x + ry * e1y + rz * e1z) * sgn
         t_s = (ngx * cx + ngy * cy + ngz * cz) * sgn
-        in_leaf = (kk < cn[..., None]) & (cn > 0)[..., None]  # (k, W, L)
-        geo = (in_leaf & (den != 0.0) & (u_s >= 0.0) & (v_s >= 0.0)
-               & (u_s + v_s <= absden) & (absden * tn[:, None, None] < t_s))
+        valid = kk[None] < lcnt[:, None]                     # (k, L)
+        geo = (valid & (den != 0.0) & (u_s >= 0.0) & (v_s >= 0.0)
+               & (u_s + v_s <= absden) & (absden * tn[la, None] < t_s))
         th = t_s / absden.clamp_min(DEN_MIN)
-        p32 = p.to(torch.int32)
-        # the children in slot order against the running t
-        t, prim, sp = self.t[a], self.prim[a], self.sp[a]
-        stopped = torch.zeros_like(a, dtype=torch.bool)
-        hits, before, drops = [], [], []
-        for c in range(W):
-            hit = passes[:, c] & (tmin[:, c] <= t)
-            if self.occluded:
-                hit = hit & ~stopped
-            inner = hit & (cn[:, c] == 0)
-            can = inner & (sp < self.D)
-            pos = sp.clamp(max=self.D - 1)
-            self.stack[a, pos] = torch.where(can, ch[:, c],
-                                             self.stack[a, pos])
-            sp = sp + can
-            cand = hit[:, None] & geo[:, c]                  # (k, L)
-            if self.counting:
-                hits.append(hit)
-                drops.append(inner & ~can)
-            for k in range(L):
-                if self.counting:
-                    before.append(stopped)
-                ok = cand[:, k] & (t_s[:, c, k] <= absden[:, c, k] * t)
-                if self.occluded:
-                    ok = ok & ~stopped
-                    t = torch.where(ok, -math.inf, t)
-                    stopped = stopped | ok
-                else:
-                    t = torch.where(ok, th[:, c, k], t)
-                    prim = torch.where(ok, p32[:, c, k], prim)
-        self.t[a], self.prim[a] = t, prim
-        self.sp[a] = torch.where(stopped, 0, sp)
-        if self.counting:
-            self._count(cn, p, in_leaf, nact, hits, before, drops)
-
-    def _count(self, cn, p, in_leaf, nact, hits, before, drops):
-        """The kernel's counters for one step: a child is slab-tested
-        unless its slot is empty or the ray stopped before it; a triangle
-        is tested in a leaf child that was hit, unless the ray stopped
-        before it."""
-        sums, W, L = self.sums, self.rows.W, self.L
-        stop = torch.stack(before, 1).view(-1, W, L)         # (k, W, L)
-        valid = (cn >= 0) & ~stop[:, :, 0]
-        sums["slab_tests"] += valid.sum()
-        sums["knot_boxes"] += (nact[:, None] * valid).sum()
-        tested = torch.stack(hits, 1)[..., None] & in_leaf & ~stop
+        tl, pl = t[la], prim[la]
+        tested = []
+        for j in range(L):
+            m = valid[:, j]
+            if occluded:
+                m = m & (tl != -math.inf)
+            tested.append(m)
+            ok = m & geo[:, j] & (t_s[:, j] <= absden[:, j] * tl)
+            if occluded:
+                tl = torch.where(ok, -math.inf, tl)
+            else:
+                tl = torch.where(ok, th[:, j], tl)
+                pl = torch.where(ok, p[:, j].to(torch.int32), pl)
+        t[la], prim[la] = tl, pl
+        if occluded:
+            sp[la] = torch.where(tl == -math.inf, 0, sp[la])
+        tested = torch.stack(tested, 1)
         sums["tri_tests"] += tested.sum()
-        sums["drops"] += torch.stack(drops).sum()
-        self.touched.index_put_((p.reshape(-1),), tested.reshape(-1).long(),
-                                accumulate=True)
+        if touched is not None:
+            touched.index_put_((p.reshape(-1),), tested.reshape(-1).long(),
+                               accumulate=True)
 
-
-def walk_mb(rows: MBRows, org, d, tn, tf, tm, occluded: bool, cnt: dict,
-            stack_depth: Optional[int] = None):
-    """The per-ray walk of flat rays at flat times `tm` (R,): (t, prim)
-    with prim the MB triangle index (-1 on a miss and for every
-    occlusion ray), PLAIN_CHUNK rays at a time. `cnt` (see
-    `new_counters`) is added to. A `stack_depth` below what the tree can
-    need drops pushes, which are counted."""
-    out_t, out_p = [], []
-    for s in range(0, max(tn.shape[0], 1), PLAIN_CHUNK):
-        e = s + PLAIN_CHUNK
-        t, prim = _Walk(rows, org[s:e], d[s:e], tn[s:e], tf[s:e], tm[s:e],
-                        bool(occluded), cnt, stack_depth).run()
-        out_t.append(t)
-        out_p.append(prim)
-    return torch.cat(out_t), torch.cat(out_p)
+    t, prim = plain_walk(None, W, D, org, d, tn, tf, occluded, cnt, leaf,
+                         children, max_leaf=MAX_WALK_LEAF)
+    cnt["slab_tests"] += int(sums["slab_tests"])
+    cnt["tri_tests"] += int(sums["tri_tests"])
+    if touched is not None:
+        cnt["prim_touched"] |= touched > 0
+    return t, prim
 
 
 def _finalize_mb(accel: MBAccel, rays: Rays, t, prim, tm) -> Hits:

@@ -1,10 +1,9 @@
 """Motion-blur traversal over packed rows: the kernel's wrapper, its
 plain version and the packer.
 
-Counterpart of embree_tpu/traverse/pallas_mb.py. `pack_mb` lays an
-`MBAccel` (traverse/mb.py) out exactly as the JAX package does
-(`PackedMB` is its `MBPallas`), each row padded to a multiple of 128
-floats:
+Counterpart of embree_tpu/traverse/pallas_mb.py. `pack_rows` lays an
+`MBAccel` (traverse/mb.py) out exactly as the JAX package does (its
+`MBPallas`), each row padded to a multiple of 128 floats:
 
   node_rows (M, pad128(2W + 6WS + 2W)) f32
       child W | count W | for each knot s: lo_x lo_y lo_z hi_x hi_y hi_z,
@@ -12,6 +11,16 @@ floats:
   tri_rows  (T, pad128(9S)) f32
       for each knot s: v0 v1 v2 of the triangle, in triangle order
   prim_order (P,) i32   leaf slot -> triangle
+
+and `compact_rows` cuts those rows to what the kernel reads, every float
+the one it came from (`PackedMB` holds these):
+
+  node_rows (M, 4W + 6WS) f32   the used floats in the same order, a
+      multiple of 4 for W = 4 (352 B at S = 3 against 512 B);
+  tri_rows  (T, 12S) f32        a knot's v0 v1 v2 and three zero pads, so
+      that a knot is three aligned float4s (144 B at S = 3 against 512
+      B; 9 floats a knot would save 32 B a triangle and cost six float4
+      loads a triangle test that straddle knot boundaries).
 
 `intersect_mb_kernel` (closest hit, finalized against the lerped
 triangle) and `occluded_mb_kernel` (any hit) are the entries, the
@@ -22,10 +31,11 @@ loaded at first use by core/nvcc.py) or raise; on CPU tensors they run
 ray computes, and in which order, is set out in traverse/mb.py; kernel
 (built with `-fmad=false`) and plain version agree bit for bit, counters
 included. Against the JAX package's kernel, which shares one stack and
-one time range among the 1,024 rays of a packet, `t` and the valid mask
-are the contract and `prim` may differ where two triangles tie on t.
+one time range among the 1,024 rays of a packet and visits children in
+slot order, `t` and the valid mask are the contract and `prim` may
+differ where two triangles tie on t.
 
-`pack_mb` refuses a leaf of more than MAX_LEAF triangles instead of
+`pack_rows` refuses a leaf of more than MAX_LEAF triangles instead of
 cutting it short as the JAX package's kernel does; the builder makes
 leaves of at most 4.
 """
@@ -50,6 +60,7 @@ WIDTH = 4                       # the node width the kernel is compiled for
 MAX_KNOTS = 65                  # the build's cap on the common knot grid
 MAX_DEPTH = 64                  # levels of nodes the compiled stack serves
 MAX_LEAF = 8
+TRI_KNOT = 12                   # floats of one knot in a compact triangle row
 
 # number of kernel launches made by this module, by variant (plain-version
 # calls do not count); a caller that wants to know whether a path went
@@ -60,8 +71,8 @@ launches = {"closest": 0, "occluded": 0}
 class PackedMB(NamedTuple):
     """The kernel-packed MB accel produced at commit time."""
 
-    node_rows: torch.Tensor     # (M, pad128(4W + 6WS)) f32
-    tri_rows: torch.Tensor      # (T, pad128(9S)) f32
+    node_rows: torch.Tensor     # (M, 4W + 6WS) f32, `compact_rows`
+    tri_rows: torch.Tensor      # (T, 12S) f32
     prim_order: torch.Tensor    # (P,) i32
     S: int
     W: int
@@ -118,6 +129,26 @@ def pack_rows(arrays: dict) -> dict:
             "prim_order": np.asarray(arrays["bvh.prim_order"], np.int32)}
 
 
+def node_floats(S: int, W: int) -> int:
+    """Width of a compact node row: the 4W + 6WS used floats, padded to
+    a multiple of 4 (a float4)."""
+    return -(-(4 * W + 6 * W * S) // 4) * 4
+
+
+def compact_rows(rows: dict, S: int, W: int) -> dict:
+    """`pack_rows`' arrays cut to what the kernel reads: node rows to
+    their used floats (padded to a float4), triangle rows to 12 floats a
+    knot (v0 v1 v2, three zero pads). Every float is the one it came
+    from."""
+    nr, tr = rows["node_rows"], rows["tri_rows"]
+    T = tr.shape[0]
+    tri = np.zeros((T, S, TRI_KNOT), np.float32)
+    tri[:, :, :9] = tr[:, :9 * S].reshape(T, S, 9)
+    return {"node_rows": np.ascontiguousarray(nr[:, :node_floats(S, W)]),
+            "tri_rows": tri.reshape(T, S * TRI_KNOT),
+            "prim_order": rows["prim_order"]}
+
+
 def accel_arrays(accel: MBAccel) -> dict:
     """An MBAccel as the dict of numpy arrays `pack_rows` takes."""
     out = {f"bvh.{k}": getattr(accel.bvh, k).cpu().numpy()
@@ -131,9 +162,10 @@ def accel_arrays(accel: MBAccel) -> dict:
 
 def packed_from_rows(rows: dict, S: int, W: int, child, count,
                      device) -> PackedMB:
-    """Upload `pack_rows`' arrays as a PackedMB."""
+    """Upload `pack_rows`' arrays, compacted, as a PackedMB."""
     return PackedMB(
-        **{k: torch.from_numpy(v).to(device) for k, v in rows.items()},
+        **{k: torch.from_numpy(v).to(device)
+           for k, v in compact_rows(rows, S, W).items()},
         S=S, W=W, num_nodes=rows["node_rows"].shape[0],
         num_prims=rows["tri_rows"].shape[0],
         depth=tree_depth(np.asarray(child), np.asarray(count)))
@@ -156,7 +188,7 @@ def packed_rows(pm: PackedMB) -> MBRows:
                   boxes=nr[:, 2 * W:tb].unflatten(1, (S, 6, W)),
                   gates=nr[:, tb:tb + 2 * W].unflatten(1, (2, W)),
                   prim_order=pm.prim_order.long(),
-                  tris=pm.tri_rows[:, :9 * S].unflatten(1, (S, 9)),
+                  tris=pm.tri_rows.unflatten(1, (S, TRI_KNOT))[:, :, :9],
                   S=S, W=W, depth=pm.depth)
 
 
@@ -169,7 +201,7 @@ def _load_kernel():
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.mb_launch.restype = ctypes.c_int
     lib.mb_launch.argtypes = [
-        p, ll, p, ll, p, ctypes.c_int, ctypes.c_int,   # accel, S, W
+        p, ll, p, p, ctypes.c_int, ctypes.c_int,       # accel, S, W
         p, p, p, p, p, ll,                             # rays, time
         p, p, p, ctypes.c_int,                         # t, prim, occ, variant
         p, p, p, p]                                    # stats, stream
@@ -191,10 +223,10 @@ def _checked_inputs(pm: PackedMB, rays: Rays, time, t_in=None):
     if not 1 <= pm.depth <= MAX_DEPTH:
         raise ValueError(f"tree of {pm.depth} levels: the kernel's stack "
                          f"serves at most {MAX_DEPTH}")
-    wn = -(-(4 * pm.W + 6 * pm.W * pm.S) // 128) * 128
-    check_tensor("node_rows", pm.node_rows, dev, f32, (pm.num_nodes, wn))
+    check_tensor("node_rows", pm.node_rows, dev, f32,
+                 (pm.num_nodes, node_floats(pm.S, pm.W)))
     check_tensor("tri_rows", pm.tri_rows, dev, f32,
-                 (pm.num_prims, -(-9 * pm.S // 128) * 128))
+                 (pm.num_prims, TRI_KNOT * pm.S))
     check_tensor("prim_order", pm.prim_order, dev, i32,
                  (pm.prim_order.shape[0],))
     org, d, tn, tf = mb._flat(rays, t_in)
@@ -207,11 +239,10 @@ def _checked_inputs(pm: PackedMB, rays: Rays, time, t_in=None):
     return org, d, tn, tf, tm
 
 
-def _stats_dict(R, nodes, slabs, knots, tris, drops, nodes_touched,
+def _stats_dict(R, nodes, slabs, tris, drops, nodes_touched,
                 prims_touched):
     return {"rays": int(R), "node_visits": int(nodes),
-            "slab_tests": int(slabs),
-            "knot_boxes": int(knots), "tri_tests": int(tris),
+            "slab_tests": int(slabs), "tri_tests": int(tris),
             "dropped_pushes": int(drops),
             "nodes_touched": int(nodes_touched),
             "prims_touched": int(prims_touched)}
@@ -248,7 +279,7 @@ def mb_trace(pm: PackedMB, rays: Rays, time, t_in=None,
         t = torch.empty(R, dtype=torch.float32, device=dev)
         prim = torch.empty(R, dtype=torch.int32, device=dev)
         occ = None
-    buf = ((torch.zeros(5, dtype=torch.int64, device=dev),
+    buf = ((torch.zeros(4, dtype=torch.int64, device=dev),
             torch.zeros(pm.num_nodes, dtype=torch.int32, device=dev),
             torch.zeros(pm.num_prims, dtype=torch.int32, device=dev))
            if stats else (None, None, None))
@@ -259,8 +290,7 @@ def mb_trace(pm: PackedMB, rays: Rays, time, t_in=None,
     with torch.cuda.device(dev):
         err = lib.mb_launch(
             pm.node_rows.data_ptr(), pm.node_rows.shape[1],
-            pm.tri_rows.data_ptr(), pm.tri_rows.shape[1],
-            pm.prim_order.data_ptr(), pm.S, pm.W,
+            pm.tri_rows.data_ptr(), pm.prim_order.data_ptr(), pm.S, pm.W,
             org.data_ptr(), d.data_ptr(), tn.data_ptr(), tf.data_ptr(),
             tm.data_ptr(), R, ptr(t), ptr(prim), ptr(occ), int(occluded),
             ptr(buf[0]), ptr(buf[1]), ptr(buf[2]),
@@ -306,7 +336,7 @@ def mb_plain(pm: PackedMB, rays: Rays, time, occluded: bool = False,
     t, prim = mb.walk_mb(packed_rows(pm), org, d, tn, tf, tm, occluded, cnt,
                          stack_depth)
     st = (_stats_dict(tn.shape[0], cnt["nodes"], cnt["slab_tests"],
-                      cnt["knot_boxes"], cnt["tri_tests"], cnt["drops"],
+                      cnt["tri_tests"], cnt["drops"],
                       cnt["node_touched"].sum().item(),
                       cnt["prim_touched"].sum().item()) if stats else None)
     if occluded:

@@ -347,22 +347,52 @@ def traversal_stats(ps: PackedScene, rays: Rays) -> np.ndarray:
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
+def slab_tmin(lo, hi, rd, od, tn):
+    """The robust slab test of boxes (k, 3, W) against rays (k, 3) with
+    reciprocal directions `rd`, origins times reciprocals `od` and
+    tnear `tn` (k,): (tmin, tmax) (k, W), tmin clamped to tnear; NaN
+    propagates (the kernels' min.NaN / max.NaN)."""
+    t0 = lo * rd[:, :, None] - od[:, :, None]
+    t1 = hi * rd[:, :, None] - od[:, :, None]
+    near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tmin = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
+                         near[:, 2]) * ROBUST_MIN
+    tmax = torch.minimum(torch.minimum(far[:, 0], far[:, 1]),
+                         far[:, 2]) * ROBUST_MAX
+    return torch.maximum(tmin, tn[:, None]), tmax
+
+
 def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
-               leaf):
+               leaf, children=None, max_leaf: int = MAX_LEAF):
     """The kernel's walk in masked tensor ops, all rays of a batch in
     lock-step, one pop per ray and step, over node rows `nodes` of width
     W behind an (R, D) stack. A popped leaf goes to `leaf(la, start,
     count, t, prim, sp)` for the rays `la` that popped one: it updates
-    t, prim and (for any-hit rays that stop) sp in place. Shared by the
-    triangle leaves of this kernel and the curve leaves of kernel B3
-    (traverse/hair_kernel.py). Returns (t, prim)."""
+    t, prim and (for any-hit rays that stop) sp in place. A popped node
+    goes to `children(na, node, t)`, which returns (tmin, ok, child,
+    count), each (k, W), for the rays `na` that popped `node`; by
+    default the slab test of the node rows' 8 stride-W fields. A leaf
+    child is pushed as -((start << 4 | count) + 1), its count cut to
+    `max_leaf` when popped. Shared by
+    the triangle leaves of this kernel, the curve leaves of kernel B3
+    (traverse/hair_kernel.py) and the lerped boxes and triangles of
+    kernel B6 (traverse/mb.py). Returns (t, prim)."""
     n = tn.shape[0]
     dev = tn.device
-    ox, oy, oz = org.unbind(1)
-    dx, dy, dz = d.unbind(1)
-    rdx, rdy, rdz = rcp_safe(dx), rcp_safe(dy), rcp_safe(dz)
-    orx, ory, orz = ox * rdx, oy * rdy, oz * rdz
+    rd = rcp_safe(d)
+    od = org * rd
     neg_inf = torch.tensor(-math.inf, dtype=torch.float32, device=dev)
+
+    if children is None:
+        def children(na, node, t_na):
+            f = nodes[node, :8 * W].view(-1, 8, W)
+            tmin, tmax = slab_tmin(f[:, 0:3], f[:, 3:6], rd[na], od[na],
+                                   tn[na])
+            # child and count are exact small floats in the row
+            cc = f[:, 6].to(torch.int32)
+            cn = f[:, 7].to(torch.int32)
+            return (tmin, (tmin <= tmax) & (tmin <= t_na[:, None])
+                    & (cn >= 0), cc, cn)
 
     t = tf.clone()
     prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -389,24 +419,7 @@ def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
             node = ref[isnode].long()
             if cnt["node_touched"] is not None:
                 cnt["node_touched"][node] = True
-            f = nodes[node, :8 * W].view(k, 8, W)
-            tx0 = f[:, 0] * rdx[na, None] - orx[na, None]
-            tx1 = f[:, 3] * rdx[na, None] - orx[na, None]
-            ty0 = f[:, 1] * rdy[na, None] - ory[na, None]
-            ty1 = f[:, 4] * rdy[na, None] - ory[na, None]
-            tz0 = f[:, 2] * rdz[na, None] - orz[na, None]
-            tz1 = f[:, 5] * rdz[na, None] - orz[na, None]
-            tmin = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                               torch.minimum(ty0, ty1)),
-                                 torch.minimum(tz0, tz1)) * ROBUST_MIN
-            tmax = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                               torch.maximum(ty0, ty1)),
-                                 torch.maximum(tz0, tz1)) * ROBUST_MAX
-            tmin = torch.maximum(tmin, tn[na, None])
-            # child and count are exact small floats in the row
-            cc = f[:, 6].to(torch.int32)
-            cn = f[:, 7].to(torch.int32)
-            ok = (tmin <= tmax) & (tmin <= t[na, None]) & (cn >= 0)
+            tmin, ok, cc, cn = children(na, node, t[na])
             cref = torch.where(cn > 0, -(((cc << 4) | cn) + 1), cc)
             key = torch.where(ok, tmin, neg_inf)
             # far to near; among equal distances the higher slot first,
@@ -428,7 +441,7 @@ def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
         if la.numel():
             cnt["leaves"] += la.shape[0]
             v = -ref[~isnode].long() - 1
-            leaf(la, v >> 4, (v & 15).clamp_max(MAX_LEAF), t, prim, sp)
+            leaf(la, v >> 4, (v & 15).clamp_max(max_leaf), t, prim, sp)
     return t, prim
 
 

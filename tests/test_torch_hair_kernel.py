@@ -26,7 +26,9 @@ import embree_tpu as et
 from embree_tpu.traverse import pallas_hair as ref_ph
 from embree_tpu_torch.build.hair import cluster_curves
 from embree_tpu_torch.convert import hair_clusters_from_reference
+from embree_tpu_torch.core.math import rows_times
 from embree_tpu_torch.core.rayhit import Rays
+from embree_tpu_torch.scene import scene as port_scene
 from embree_tpu_torch.traverse import hair_kernel as hk
 from embree_tpu_torch.verify.fixtures import hair_ball
 from test_torch_build import reference_native  # noqa: F401,E402
@@ -284,3 +286,157 @@ def test_clusters_are_rotated_frames():
         back = seg[:, 0:3] @ rot.T
         m, k = payload // 3, payload % 3
         np.testing.assert_allclose(back, world[m, k], atol=1e-5)
+
+
+def _fold_one_cluster_at_a_time(cs, flat, hits, hairs=None):
+    """The hair fold as it ran before one launch served every cluster: a
+    launch, a finalize and a fold a cluster (`hairs`, by default
+    `cs.hairs`, in order), the rays rotated on the host
+    (core/math.py::rows_times) and Ng rotated back."""
+    for h in cs.hairs if hairs is None else hairs:
+        t, u, v, ng, m, hitm = hk.intersect_hair_kernel(
+            h.packed, rows_times(flat.org, h.rot),
+            rows_times(flat.dir, h.rot), flat.tnear, hits.t.contiguous())
+        use = hitm & (t < hits.t)
+        hits = port_scene._fold(hits, use, t, u, v, rows_times(ng, h.rot.T),
+                                h.members[m.clamp_min(0).long()], h.gid)
+    return hits
+
+
+def _occluded_one_cluster_at_a_time(cs, flat):
+    """(occlusion, clusters entered summed over rays): a ray already
+    occluded enters no further cluster."""
+    occ = torch.zeros(flat.tnear.shape, dtype=torch.bool)
+    entered = 0
+    for h in cs.hairs:
+        entered += int((~(occ | (flat.tfar == -math.inf))).sum())
+        occ = occ | hk.occluded_hair_kernel(
+            h.packed, rows_times(flat.org, h.rot),
+            rows_times(flat.dir, h.rot), flat.tnear,
+            torch.where(occ, -math.inf, flat.tfar))
+    return occ, entered
+
+
+def _bits(a):
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+@pytest.mark.parametrize("shape", ["fur", "ball"])
+def test_one_launch_equals_the_per_cluster_fold(shape):
+    """A request's hair fold, one launch over every cluster with the rays
+    rotated in the kernel and one finalize, equals the fold one cluster at
+    a time bit for bit (t, u, v, Ng, prim_id, geom_id), from a running t
+    that starts anywhere: on the tutorial's fur at 400 strands (3 round
+    clusters) and a hair ball of 60 flat curves (13 clusters)."""
+    from embree_tpu_torch import BezierCurves, Device, Scene
+    from embree_tpu_torch.render.tutorials import hair_geometry as hg
+    if shape == "fur":
+        verts, idx = hg.make_fur(400)
+        geom, extent = BezierCurves(verts, idx, tessellation_rate=6), 1.5
+    else:
+        verts, idx = hair_ball(np.random.default_rng(21), 60)
+        geom, extent = BezierCurves(verts, idx, tessellation_rate=4,
+                                    flat=True), 2.5
+    sc = Scene(Device(CFG, device="cpu"))
+    sc.attach(geom)
+    cs = sc.commit()
+    assert len(cs.hairs) == (3 if shape == "fur" else 13)
+    assert cs.hair_set.packed.runs() == [(shape == "ball", 0,
+                                          len(cs.hairs))]
+    world = torch.cat([torch.cat([rows_times(h.packed.seg[:, 0:3], h.rot.T),
+                                  rows_times(h.packed.seg[:, 3:6], h.rot.T)],
+                                 1) for h in cs.hairs]).numpy()
+    rng = np.random.default_rng(22)
+    n = 768
+    org, d = _aimed_rays(rng, n, world, extent)
+    tf = np.full(n, np.inf, np.float32)
+    tf[1::5] = rng.uniform(0.5, 4.0, tf[1::5].shape)
+    tf[3::17] = -np.inf
+    flat = _port_rays(org, d, tf)
+    start = port_scene.miss_hits((n,), flat.tfar, device="cpu")
+    one = port_scene._fold_hair(cs, flat, start)
+    old = _fold_one_cluster_at_a_time(cs, flat, start)
+    for name in ("t", "u", "v", "ng", "prim_id", "geom_id", "gprim",
+                 "inst_id"):
+        a, b = getattr(one, name), getattr(old, name)
+        assert torch.equal(_bits(a), _bits(b)), name
+    c = cs.hair_set.packed
+    _t, slot, cl = hk.hair_set_plain(c, flat)
+    assert one.valid.sum() > 100 and len(set(cl[slot >= 0].tolist())) >= 3
+    occ = port_scene.scene_occluded(cs, flat)
+    occ_old, entered = _occluded_one_cluster_at_a_time(cs, flat)
+    assert torch.equal(occ, occ_old)
+    assert torch.equal(occ, one.valid | (flat.tfar == -math.inf))
+    # an any-hit ray that hits enters no later cluster
+    *_r, st_o = hk.hair_set_plain(c, flat, occluded=True, stats=True)
+    assert st_o["clusters_entered"] == entered < n * len(cs.hairs)
+    # the counters of one pass over the set are the clusters' own, each
+    # cluster walked from the running t
+    *_r, st = hk.hair_set_plain(c, flat, stats=True)
+    t_run, sums = flat.tfar.clone(), {}
+    for k, h in enumerate(cs.hairs):
+        cr = Rays(rows_times(flat.org, h.rot), rows_times(flat.dir, h.rot),
+                  flat.tnear, t_run)
+        t_run, _s, st_k = hk.hair_plain(h.packed, cr, stats=True)
+        for key, val in st_k.items():
+            sums[key] = sums.get(key, 0) + val
+    assert st == {**sums, "rays": n, "clusters_entered": n * len(cs.hairs)}
+
+
+def test_mixed_leaf_types_make_one_launch_a_type(monkeypatch):
+    """Round and flat curves in one scene: the set puts the first leaf
+    type's clusters first (scene order within a type), one run a type;
+    a run longer than a launch serves splits, and the fold over the
+    pieces still equals the fold one cluster at a time; against the fold
+    in scene order (the JAX package's) only equal-t ties may differ."""
+    from embree_tpu_torch import BezierCurves, Device, Scene
+    rng = np.random.default_rng(23)
+    sc = Scene(Device(CFG, device="cpu"))
+    for flat in (True, False, True):
+        v, i = hair_ball(rng, 20)
+        sc.attach(BezierCurves(v, i, tessellation_rate=2, flat=flat))
+    cs = sc.commit()
+    kinds = [h.packed.flat for h in cs.hairs]
+    n_flat = kinds.count(True)
+    assert kinds == [True] * n_flat + [False] * (len(kinds) - n_flat)
+    assert [h.gid for h in cs.hairs][:n_flat] == sorted(
+        h.gid for h in cs.hairs[:n_flat])
+    assert cs.hair_set.packed.runs() == [(True, 0, n_flat),
+                                         (False, n_flat, len(kinds) - n_flat)]
+    for k, h in enumerate(cs.hairs):
+        view = cs.hair_set.packed.cluster(k)
+        assert all(torch.equal(a, b) for a, b in zip(view[:4], h.packed[:4]))
+        assert h.packed.nodes.data_ptr() == view.nodes.data_ptr()
+    monkeypatch.setattr(hk, "MAX_CLUSTERS", 3)
+    runs = cs.hair_set.packed.runs()
+    assert len(runs) > 2 and all(c <= 3 for _f, _s, c in runs)
+    assert [r[1] for r in runs] == list(np.cumsum([0] + [r[2] for r in runs]
+                                                  )[:-1])
+    seg = np.concatenate([h.packed.seg.numpy() for h in cs.hairs])
+    org, d = _aimed_rays(rng, 256, seg, 2.0)
+    flat = _port_rays(org, d)
+    start = port_scene.miss_hits((256,), flat.tfar, device="cpu")
+    one = port_scene._fold_hair(cs, flat, start)
+    old = _fold_one_cluster_at_a_time(cs, flat, start)
+    assert one.valid.sum() > 20
+    for name in ("t", "u", "v", "ng", "prim_id", "geom_id"):
+        assert torch.equal(_bits(getattr(one, name)),
+                           _bits(getattr(old, name))), name
+    # the JAX package folds the clusters in scene order (geometry by
+    # geometry); grouping by leaf type moves only a hit that ties at equal
+    # t with a cluster of the other type, and the ties are counted
+    ref = _fold_one_cluster_at_a_time(
+        cs, flat, start, sorted(cs.hairs, key=lambda h: h.gid))
+    assert [h.gid for h in sorted(cs.hairs, key=lambda h: h.gid)] != [
+        h.gid for h in cs.hairs]
+    assert torch.equal(_bits(one.t), _bits(ref.t))
+    own = torch.stack([hk.intersect_hair_kernel(
+        h.packed, rows_times(flat.org, h.rot), rows_times(flat.dir, h.rot),
+        flat.tnear, flat.tfar)[0] for h in cs.hairs])
+    ties = ((own == one.t) & one.valid).sum(0) > 1
+    moved = torch.zeros_like(ties)
+    for name in ("u", "v", "ng", "prim_id", "geom_id"):
+        a, b = _bits(getattr(one, name)), _bits(getattr(ref, name))
+        moved |= (a != b).reshape(a.shape[0], -1).any(1)
+    assert not (moved & ~ties).any()
+    assert int(ties.sum()) == 0

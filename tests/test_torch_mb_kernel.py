@@ -110,22 +110,40 @@ def assert_hits_match(ref, port):
 
 @pytest.mark.parametrize("name", ["kinked", "cross"])
 def test_pack_mb_and_converter_byte_equal(refs, name):
+    """`pack_rows`, the reference-equal intermediate, byte for byte
+    against the JAX package's `pack_mb` (from the port's accel and from
+    the reference's arrays); the kernel's compact rows hold every float
+    bit for bit where it came from, and zeros in the pads."""
     cs, accel, packed = refs(name)
     ref = ref_pmb.pack_mb(cs.mb)
-    for got in (packed, mk.pack_mb(accel)):
-        for a, b in ((got.node_rows, ref.node_rows),
-                     (got.tri_rows, ref.tri_rows)):
+    for rows in (mk.pack_rows(mk.accel_arrays(accel)),
+                 mk.pack_rows(ref_arrays(cs.mb))):
+        for a, b in ((rows["node_rows"], ref.node_rows),
+                     (rows["tri_rows"], ref.tri_rows)):
             assert a.shape == np.shape(b) and a.shape[1] % 128 == 0
-            np.testing.assert_array_equal(a.numpy().view(np.uint32),
+            np.testing.assert_array_equal(a.view(np.uint32),
                                           np.asarray(b).view(np.uint32))
-        np.testing.assert_array_equal(got.prim_order.numpy(),
+        np.testing.assert_array_equal(rows["prim_order"],
                                       np.asarray(ref.prim_order))
-        assert (got.S, got.W, got.num_nodes, got.num_prims) == (
-            ref.S, ref.W, ref.num_nodes, ref.num_prims)
     S, W = packed.S, packed.W
     used = 4 * W + 6 * W * S
-    assert not packed.node_rows[:, used:].any()
-    assert not packed.tri_rows[:, 9 * S:].any()
+    assert not rows["node_rows"][:, used:].any()
+    assert not rows["tri_rows"][:, 9 * S:].any()
+    for got in (packed, mk.pack_mb(accel)):
+        assert (got.S, got.W, got.num_nodes, got.num_prims) == (
+            ref.S, ref.W, ref.num_nodes, ref.num_prims)
+        nr, tr = got.node_rows.numpy(), got.tri_rows.numpy()
+        assert nr.shape == (ref.num_nodes, used) and used % 4 == 0
+        assert tr.shape == (ref.num_prims, 12 * S)
+        np.testing.assert_array_equal(
+            nr.view(np.uint32), rows["node_rows"][:, :used].view(np.uint32))
+        knots = tr.reshape(-1, S, 12)
+        np.testing.assert_array_equal(
+            knots[:, :, :9].view(np.uint32),
+            rows["tri_rows"][:, :9 * S].reshape(-1, S, 9).view(np.uint32))
+        assert not knots[:, :, 9:].any()
+        np.testing.assert_array_equal(got.prim_order.numpy(),
+                                      rows["prim_order"])
     assert accel.has_time_splits == (name == "cross")
     for f in FIELDS:
         a = getattr(cs.mb, f)
@@ -162,6 +180,76 @@ def test_walk_matches_pallas_interpret_and_xla(refs, rng, name):
         assert torch.equal(a, b)
 
 
+def _leaf_paths(rows):
+    """For every triangle, the (node, slot) pairs from the root down to
+    its leaf: (T, depth) node and slot arrays, -1 past the path's end."""
+    child, count = rows.child.numpy(), rows.count.numpy()
+    T, D = rows.tris.shape[0], rows.depth
+    po = rows.prim_order.numpy()
+    nodes = np.full((T, D), -1)
+    slots = np.full((T, D), -1)
+    todo = [(0, [])]
+    while todo:
+        m, path = todo.pop()
+        for c in range(rows.W):
+            if count[m, c] == 0:
+                todo.append((child[m, c], path + [(m, c)]))
+            elif count[m, c] > 0:
+                for p in po[child[m, c]:child[m, c] + count[m, c]]:
+                    nodes[p, :len(path) + 1] = [q[0] for q in path] + [m]
+                    slots[p, :len(path) + 1] = [q[1] for q in path] + [c]
+    assert (nodes[:, 0] == 0).all()
+    return nodes, slots
+
+
+@pytest.mark.parametrize("name", ["kinked", "cross"])
+def test_lerped_boxes_contain_lerped_triangles(refs, rng, name):
+    """Every box on a triangle's path, lerped to a time with the walk's
+    expression, holds the triangle lerped to the same time, exactly in
+    float32, wherever the path's time gates admit the time: at 64 random
+    times a triangle and at every knot. The box of knot `seg` alone does
+    not (the triangles move), so the lerp is what keeps the hits."""
+    _cs, _accel, packed = refs(name)
+    rows = mk.packed_rows(packed)
+    S = rows.S
+    nodes, slots = _leaf_paths(rows)
+    T, D = nodes.shape
+    times = np.concatenate([rng.uniform(0, 1, (T, 64)),
+                            np.tile(np.linspace(0, 1, S), (T, 1))], 1)
+    tm = torch.from_numpy(times.astype(np.float32))         # (T, R)
+    x = tm * float(S - 1)
+    seg = x.to(torch.int32).clamp(0, S - 2).long()
+    w = x - seg.to(torch.float32)
+    omw = 1.0 - w
+    p = torch.arange(T)[:, None]
+    tri = (rows.tris[p, seg] * omw[..., None]
+           + rows.tris[p, seg + 1] * w[..., None]).view(T, -1, 3, 3)
+    on = torch.from_numpy(nodes >= 0)
+    m = torch.from_numpy(nodes.clip(0))[:, :, None]          # (T, D, 1)
+    c = torch.from_numpy(slots.clip(0))[:, :, None]
+    box = lambda k: rows.boxes[m, k, :, c]                   # (T, D, R, 6)
+    sg = seg[:, None, :]
+    lerped = (box(sg) * omw[:, None, :, None]
+              + box(sg + 1) * w[:, None, :, None])
+    gates = rows.gates[m[..., 0], :, c[..., 0]]              # (T, D, 2)
+    admit = (on[..., None] & (tm[:, None] >= gates[..., 0:1])
+             & (tm[:, None] <= gates[..., 1:2])) | ~on[..., None]
+    admit = admit.all(dim=1)                                 # (T, R)
+    checked = 0
+    for lo_hi in (lerped, box(sg)):
+        lo = lo_hi[..., None, 0:3]                           # (T,D,R,1,3)
+        hi = lo_hi[..., None, 3:6]
+        inside = ((lo <= tri[:, None]) & (tri[:, None] <= hi)).all(-1)
+        inside = inside.all(-1) | ~on[..., None]             # (T, D, R)
+        ok = inside.all(dim=1) | ~admit
+        if lo_hi is lerped:
+            assert ok.all(), f"{int((~ok).sum())} (triangle, time) pairs"
+            checked = int(admit.sum())
+        else:
+            assert not ok.all()
+    assert checked >= T * 20
+
+
 def test_counters_stack_and_times(refs, rng):
     cs, accel, packed = refs("kinked")
     org, d, tm = aimed_rays(rng, 500, accel, 3.0)
@@ -170,9 +258,6 @@ def test_counters_stack_and_times(refs, rng):
     n = 500
     assert st["rays"] == n and st["dropped_pushes"] == 0
     assert n <= st["node_visits"] <= st["slab_tests"] <= 4 * st["node_visits"]
-    # a ray at an interior time activates two of the three knots, at
-    # time 0 or 1 also two (k0 <= 0 <= k1 for knots 0 and 1)
-    assert st["knot_boxes"] == 2 * st["slab_tests"]
     assert 0 < st["prims_touched"] <= packed.num_prims
     assert 0 < st["nodes_touched"] <= packed.num_nodes
     # a stack too small for the tree drops pushes, and they are counted
@@ -264,8 +349,11 @@ def test_reference_cuts_leaves_beyond_eight_the_port_refuses_them():
 def _chain(levels):
     """A chain of `levels` nodes, each with three empty inner children in
     slots 0-2 (pushed and left on the stack) and the next chain node in
-    slot 3 (popped first); the last chain node holds one leaf with the
-    only triangle. Every box holds the ray."""
+    slot 3 (popped first: by the JAX package's kernel as the last slot
+    pushed, by the port's walk as the nearest child); the last chain node
+    holds one leaf with the only triangle. Every box holds the ray; the
+    ray (from z = 5 along -z) enters the chain's boxes at once and the
+    empty children's boxes (z up to 4) at t = 1."""
     M = 4 * levels
     child = np.zeros((M, 4), np.int64)
     count = np.full((M, 4), -1, np.int64)
@@ -281,6 +369,7 @@ def _chain(levels):
             child[i, 0], count[i, 0] = 0, 1
     lo = np.full((M, 4, 3), -9.0)
     hi = np.full((M, 4, 3), 9.0)
+    hi[:levels - 1, :3, 2] = 4.0
     return child[:nxt], count[:nxt], lo[:nxt], hi[:nxt]
 
 

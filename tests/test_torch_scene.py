@@ -319,3 +319,22 @@ def test_unported_arguments_raise(rng):
     with pytest.raises(ett.RaytracerError):
         ett.scene_intersect(sc.committed, ett.Rays(
             *(x.to("meta") for x in rays)))
+
+
+def test_interpolate_raises_not_ported():
+    """`Scene.interpolate` and `interpolate_normal` exist with the JAX
+    package's signatures and raise RaytracerError(INVALID_OPERATION,
+    "not ported yet: ...") until they are ported, not AttributeError."""
+    dev = ett.Device("ignore_config_files=1", device="cpu")
+    sc = ett.Scene(dev)
+    sc.attach(ett.TriangleMesh(*triangle_sphere((0, 0, 0), 1.0, 4)))
+    sc.commit()
+    prim, u, v = torch.zeros(2, dtype=torch.int32), torch.zeros(2), \
+        torch.zeros(2)
+    for fn in (lambda: sc.interpolate(0, prim, u, v),
+               lambda: sc.interpolate(0, prim, u, v, slot=0,
+                                      derivatives=True),
+               lambda: sc.interpolate_normal(0, prim, u, v)):
+        with pytest.raises(ett.RaytracerError, match="not ported yet") as e:
+            fn()
+        assert e.value.code == ett.Error.INVALID_OPERATION
