@@ -11,7 +11,8 @@ the public entry points:
 
   * the treelet path (kernel `rowtrace2`): Device -> Scene -> attach ->
     commit -> intersect / occluded on a 998,284-triangle sphere with
-    2^21 incoherent rays;
+    2^21 incoherent rays, every one of them held against the plain
+    version over the compact treelet scene (0 ulp, counters equal);
   * the packet path (kernel `packet`): a 99,012-triangle scene of two
     masked geometries with 2^21 incoherent rays (plain, filtered and
     masked requests), the 998,284-triangle scene with a 1920x1080 frame
@@ -25,7 +26,8 @@ the public entry points:
     displaced by fBm noise, subdivided to level 5 and committed under
     `subdiv_accel=bvh4.compressed.leaf` as 63,488 tiles of 64 cells, with
     2^21 incoherent rays and a 1920x1080 frame through `scene.intersect`
-    / `scene.occluded`, held against the eager tessellation of the same
+    / `scene.occluded`, every ray held against the plain versions over the
+    compact accel, and against the eager tessellation of the same
     mesh (8.1M triangles through the packet kernel); the other modes and
     node flavors on a 960-face cage; and the `displacement_geometry`
     tutorial;
@@ -51,8 +53,8 @@ the public entry points:
     `hair_geometry` and `curve_geometry` tutorials;
   * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
     all ten kernel entries against their plain versions, and 100,000
-    rays from inside closed spheres through B2 and B6, none of which may
-    miss.
+    rays from inside closed surfaces through B2, B6, B1, B4 and B5, none
+    of which may miss.
 
 Answers are checked against the plain versions, against brute-force
 tests of every primitive, between the two triangle kernels, and against
@@ -127,7 +129,8 @@ SMALL_RES = 223            # triangle_sphere(223) = 99,012: under ROWTRACE_MIN_P
 LOG2_RAYS = 21
 RAY_SEED = 0xBE7C4
 BRUTE_RAYS = 1024
-B1_PLAIN_LOG2 = 18         # rays of the main path B1's plain version re-walks
+B1_PLAIN_LOG2 = LOG2_RAYS  # rays of the main path B1's plain version re-walks
+B2_VS_B1_LOG2 = 18         # rays of the main path B2 is held against B1 on
 B2_PLAIN_LOG2 = 16         # rays B2's plain version walks at full scene size
 FRAME = (1920, 1080)
 TRAIN_STEPS = 5
@@ -141,7 +144,8 @@ SUBDIV_CAGE = 64           # sphere_cage(64) = 64 x 62 = 3,968 quad faces
 SUBDIV_LEVELS = (5, 3)     # 1,024 cells a face in 16 tiles of 64 cells
 SUBDIV_SMALL_CAGE = 32
 SUBDIV_SMALL_LEVELS = (4, 3)
-B4_PLAIN_LOG2 = 16         # rays B4's and B5's plain versions walk
+B4_PLAIN_LOG2 = LOG2_RAYS  # main-c rays B4's and B5's plain versions walk
+B4_SMALL_LOG2 = 16         # rays of the other modes' plain comparisons
 # a conservative mode may report a hit this far behind the exact surface
 # (the JAX package's own bound for its conservative modes)
 CONSERVATIVE_EPS = 2e-2
@@ -235,22 +239,36 @@ def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def compare_kernel_plain(ts, rays, occluded, cull, label):
-    """Kernel and plain version on the same card tensors: prim equal,
-    t within 1 ulp. Returns (max_abs_err, plain_ms)."""
+    """Kernel (main and counting build) and plain version (counting) on
+    the same card tensors: prim equal, t at 0 ulp, counters equal.
+    Returns (max_abs_err, plain_ms, counters)."""
     t_k, p_k = rt2.intersect_rowtrace2(ts, rays, occluded=occluded, cull=cull)
+    t_s, p_s, st_k = rt2.rowtrace2_stats(ts, rays, occluded=occluded,
+                                         cull=cull)
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     ev0.record()
-    t_p, p_p = rt2.rowtrace2_plain(ts, rays, occluded=occluded, cull=cull)
+    t_p, p_p, st_p = rt2.rowtrace2_plain(ts, rays, occluded=occluded,
+                                         cull=cull, stats=True)
     ev1.record()
     torch.cuda.synchronize()
     plain_ms = ev0.elapsed_time(ev1)
     ulps, err = check_close(label, t_k, t_p, p_k, p_p)
+    ulps_s, _ = check_close(label + " (counting build)", t_s, t_p, p_s, p_p)
+    if ulps or ulps_s:
+        raise AssertionError(f"{label}: t differs by {max(ulps, ulps_s)} ulp")
+    if st_k != st_p:
+        raise AssertionError(f"{label}: counters differ: {st_k} vs {st_p}")
+    n = rays.tnear.numel()
     hits = int((t_k == -math.inf).sum()) if occluded else int((p_k >= 0).sum())
-    log(f"  {label}: {rays.tnear.numel()} rays, {hits} hits, prim equal, "
-        f"t within {ulps} ulp (max abs err {err:g}), plain {plain_ms:.0f} ms")
-    return err, plain_ms
+    log(f"  {label}: {n} rays, {hits} hits, prim equal, t at 0 ulp (max abs "
+        f"err {err:g}), counters equal (per ray {st_k['mids_entered'] / n:.2f}"
+        f" mids, {st_k['treelets_walked'] / n:.2f} treelets, "
+        f"{st_k['node_visits'] / n:.2f} node visits, "
+        f"{st_k['pair_tests'] / n:.2f} pair tests); plain (counting) "
+        f"{plain_ms:.0f} ms")
+    return err, plain_ms, st_k
 
 
 def small_scene_checks(device):
@@ -284,20 +302,23 @@ def small_scene_checks(device):
     d = unit_dirs(rng, n)
     scene("converging rays, random_triangles(3000)", verts, idx, 2,
           -d * 6.0, d)
+    # more than 256 mids: the kernel stages them in two chunks
     if not any(ts.num_mids > 256 for _, ts, _ in cases):
         raise AssertionError("no small scene has more than 256 mids")
-    # leaf pairs 128..255 of a treelet live in block rows 32..51
-    if not any((ts.blocks[:, 32 + 18, :].view(torch.int32) >= 0).any()
+    # leaf pairs 128..255 of a treelet (the second chunk of a block row)
+    if not any((ts.pairs[:, 128:, 18].view(torch.int32) >= 0).any()
                for _, ts, _ in cases):
         raise AssertionError("no small scene fills the second leaf chunk")
+    if not any(ts.fan > 32 for _, ts, _ in cases):
+        raise AssertionError("no small scene has a fan above 32")
 
     worst = 0.0
     for name, ts, rays in cases:
         for mode, occluded, cull in (("closest", False, False),
                                      ("occluded", True, False),
                                      ("cull", False, True)):
-            err, _ = compare_kernel_plain(ts, rays, occluded, cull,
-                                          f"{name}, {mode}")
+            err, _, _ = compare_kernel_plain(ts, rays, occluded, cull,
+                                             f"{name}, {mode}")
             worst = max(worst, err)
     return worst
 
@@ -322,11 +343,19 @@ def roofline_bound(ts, stats):
     """Least time the card could take for what this run's rays needed:
     the larger of bytes / memory rate (rays in, (t, prim) out, the box
     tables and every touched block once) and counted float32 operations
-    / the non-tensor fp32 peak."""
+    / the non-tensor fp32 peak.
+
+    The bytes term still counts the JAX package's 128-lane blocks (a
+    touched treelet's BLOCK_ROWS rows of 512 bytes, mid boxes as 6 rows
+    of 128 lanes), not the compact records the kernel now reads (48-byte
+    nodes, 80-byte pairs, 32-byte boxes). It is kept only so that the
+    kernel before and after the compact form is held to one bound; the
+    operations term is the larger today. Once the bound moves to bytes it
+    has to count the compact records."""
     rays = stats["rays"]
     nbytes = (rays * (8 * 4 + 2 * 4)
               + stats["treelets_touched"] * BLOCK_ROWS * 128 * 4
-              + ts.mid_boxes.numel() * 4 + ts.tre_boxes.numel() * 4)
+              + ts.num_mids * 6 * 4 + ts.num_mids * 6 * 128 * 4)
     slabs = (rays * ts.num_mids + stats["mids_entered"] * ts.fan
              + stats["node_visits"] * 4)
     flops = slabs * SLAB_FLOPS + stats["pair_tests"] * 2 * TRI_FLOPS
@@ -779,8 +808,17 @@ def tile_used_bytes(pc):
 
 
 def tile_row_bytes(pc):
-    """Bytes of one tile as laid out: 3 rows of 512 B, 8 more for a grid."""
+    """Bytes of one tile in the JAX package's rows: 3 rows of 512 B, 8
+    more for a grid."""
     return 512 * (3 + (ck.GRID_ROWS if pc.mode == "grid" else 0))
+
+
+def packed_row_bytes(pc):
+    """Bytes of the accel in the JAX package's rows (`pack_compressed`):
+    512 B a top-level node, the tiles' rows, tile_of_leaf and the uv
+    tables, as the packed accel held them before the compact form."""
+    return (pc.num_nodes * 512 + pc.num_tiles * (tile_row_bytes(pc) + 4)
+            + pc.uv0.numel() * 4 + pc.uvd.numel() * 4)
 
 
 def cbvh_bound(pc, st, occluded):
@@ -1515,8 +1553,11 @@ def nan_lane_checks(device):
     ps = packed_scene(verts, idx, 4, device)
     for occl in (False, True):
         mode = "occluded" if occl else "closest"
-        zero("rowtrace2", compare_kernel_plain(
-            ts, rays, occl, False, f"rowtrace2 {mode}, NaN/Inf lanes")[0])
+        for cull in (False, True):
+            zero("rowtrace2", compare_kernel_plain(
+                ts, rays, occl, cull,
+                f"rowtrace2 {mode}{', cull' if cull else ''}, NaN/Inf "
+                "lanes")[0])
         t, p = rt2.intersect_rowtrace2(ts, rays, occluded=occl)
         misses("rowtrace2", (t == -math.inf) | (p >= 0))
         zero("packet", compare_packet_plain(
@@ -1573,9 +1614,13 @@ def nan_lane_checks(device):
 
 
 def watertight_checks(device):
-    """Phase 3g: tests/test_watertight_matrix.py's triangle and MB-triangle
-    cases at the reference's 100,000 rays from inside the sphere, through
-    the scene's kernels B2 and B6: no ray may miss."""
+    """Phase 3g: tests/test_watertight_matrix.py's triangle, MB-triangle
+    and subdivision cases at the reference's 100,000 rays from inside a
+    closed surface, through the scene's kernels B2 and B6, the treelet
+    kernel B1 and the compressed kernels B4 and B5 ('grid', 'box',
+    'leaf'), B1, B4 and B5 held against their plain versions: no ray may
+    miss. Returns the worst error of B1, B4 and B5 against their plain
+    versions."""
     rng = np.random.default_rng(0x3A7)
     n = 100_000
     d = unit_dirs(rng, n)
@@ -1588,6 +1633,37 @@ def watertight_checks(device):
         h = sc.intersect(rays)
         torch.cuda.synchronize()
     lc.expect("watertight triangles", 0, 1)
+    # the same sphere as a treelet scene, through B1
+    rts = ett.Scene(ett.Device(
+        "ignore_config_files=1,tri_accel=bvh4.triangle4.rowtrace"))
+    rts.attach(ett.TriangleMesh(verts, idx))
+    ts = rts.commit().rowtrace
+    errs = {"rowtrace2": 0.0, "cbvh": 0.0, "cbvh_occluded": 0.0}
+    for occl in (False, True):
+        e, _, _ = compare_kernel_plain(
+            ts, rays, occl, False, "watertight triangle_sphere(60), "
+            f"rowtrace2 {'occluded' if occl else 'closest'}")
+        errs["rowtrace2"] = max(errs["rowtrace2"], e)
+        t1, p1 = rt2.intersect_rowtrace2(ts, rays, occluded=occl)
+        miss_b1 = int((~(t1 == -math.inf) if occl else (p1 < 0)).sum())
+        if miss_b1:
+            raise AssertionError(f"watertight: {miss_b1} of {n} rays missed "
+                                 "the triangle sphere through B1")
+    # the subdivision cube in the compressed kernels' modes, B4 and B5
+    cv, cc, ci = subdiv_cube()
+    for mode in ck.MODES:
+        pc = subdiv_scene("", (cv, cc, ci, None), (4, 2),
+                          mode).committed.compressed_kernel
+        e, _, _, occ_err = compare_cbvh_plain(
+            pc, rays, f"watertight subdiv_cube (4, 2) {mode}")
+        errs["cbvh"] = max(errs["cbvh"], e)
+        errs["cbvh_occluded"] = max(errs["cbvh_occluded"], occ_err)
+        miss_c = int((ck.cbvh_trace(pc, rays)[3] < 0).sum())
+        miss_o = int((~ck.cbvh_occluded_trace(pc, rays)[0]).sum())
+        if miss_c or miss_o:
+            raise AssertionError(f"watertight: {miss_c} and {miss_o} of {n} "
+                                 f"rays missed the {mode} cube through B4 "
+                                 "and B5")
     verts, idx = triangle_sphere((0.0, 0.0, 0.0), 2.0, 40)
     ms = ett.Scene(ett.Device("ignore_config_files=1"))
     ms.attach(ett.TriangleMeshMB(verts, verts + np.float32([0.3, 0, 0]),
@@ -1604,16 +1680,20 @@ def watertight_checks(device):
         raise AssertionError(f"watertight: {miss} of {n} rays missed the "
                              f"triangle sphere (B2), {miss_mb} the MB "
                              "sphere (B6)")
-    log(f"  {n} rays from inside triangle_sphere(60) through B2 and "
+    log(f"  {n} rays from inside triangle_sphere(60) through B2 and B1, "
         f"inside the moving triangle_sphere(40) at random times through "
-        f"B6: 0 misses each")
+        f"B6, inside subdiv_cube() in box, leaf and grid mode through B4 "
+        f"and B5: 0 misses each")
+    return errs
 
 
-def grid_triangles(tiles):
-    """The two triangles of every cell of a grid-mode accel, with the
-    kernel's diagonal and vertex order, as a triangle mesh."""
-    g = tiles.grid.cpu().numpy()
-    T, n = g.shape[0], g.shape[1]
+def grid_triangles(pc):
+    """The two triangles of every cell of a grid-mode accel (its compact
+    form), with the kernel's diagonal and vertex order, as a mesh."""
+    n = (1 << pc.comp_level) + 1
+    _words, _node_ofs, leaf_ofs = ck.tile_layout(pc.comp_level, pc.mode)
+    g = pc.tiles[:, leaf_ofs:leaf_ofs + 3 * n * n].cpu().numpy()
+    T = g.shape[0]
     verts = g.reshape(-1, 3)
     i, j = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
     v00 = (i * n + j).reshape(-1)
@@ -1675,8 +1755,9 @@ def main() -> int:
     log("[3f] NaN and Inf lanes through all ten kernel entries vs their "
         "plain versions")
     lane_err = nan_lane_checks(dev.device)
-    log("[3g] watertight: rays from inside closed spheres through B2 and B6")
-    watertight_checks(dev.device)
+    log("[3g] watertight: rays from inside closed surfaces through B2, B6, "
+        "B1, B4 and B5")
+    wt_err = watertight_checks(dev.device)
     if args.quick:
         log("--quick: stopping before the full-size phases")
         return 0
@@ -1699,11 +1780,20 @@ def main() -> int:
         raise AssertionError("commit did not use the native SAH builder")
     log(f"  commit {commit_s:.2f} s: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in phases.items()))
+    # the JAX package's blocks, mid boxes and per-mid planes of the same
+    # treelets: what the card held before the compact form
+    blocks_bytes = 4 * (ts.num_treelets * BLOCK_ROWS * 128
+                        + ts.num_mids * (6 + 6 * 128))
     log(f"  {cs.tris.num_prims} triangles, {ts.num_treelets} treelets in "
-        f"{ts.num_mids} mids of fan {ts.fan}, "
-        f"{ts.device_bytes / 1e6:.1f} MB on the card; BVH{cs.packet.width} of "
+        f"{ts.num_mids} mids of fan {ts.fan}: the compact treelet scene "
+        f"{ts.device_bytes / 1e6:.1f} MB on the card (the JAX package's "
+        f"blocks {blocks_bytes / 1e6:.1f} MB); the committed scene "
+        f"{_scene_bytes(cs) / 1e6:.1f} MB in all; BVH{cs.packet.width} of "
         f"{cs.packet.num_nodes} nodes in {cs.packet.depth} levels, "
         f"{cs.packet.device_bytes / 1e6:.1f} MB packed")
+    if ts.device_bytes > 1.15 * blocks_bytes:
+        raise AssertionError("the compact treelet scene is larger than "
+                             "1.15 times the blocks")
     if cs.tris.num_prims != 998284:
         raise AssertionError(f"{cs.tris.num_prims} triangles, not 998,284")
 
@@ -1737,11 +1827,17 @@ def main() -> int:
     # -- 5. treelet path: correctness at full size ---------------------------
     log("[5] treelet path: correctness at full size")
     nb1 = 1 << B1_PLAIN_LOG2
-    head = Rays(*(a[:nb1].contiguous() for a in rays))
-    full_err, plain_ms = compare_kernel_plain(
-        ts, head, False, False,
-        f"998,284 triangles, the first 2^{B1_PLAIN_LOG2} rays of the main "
-        "path")
+    b1_rays = Rays(*(a[:nb1].contiguous() for a in rays))
+    full_err, plain_ms, _ = compare_kernel_plain(
+        ts, b1_rays, False, False,
+        f"998,284 triangles, 2^{B1_PLAIN_LOG2} rays of the main path, "
+        "closest")
+    e_occ, plain_occ_ms, _ = compare_kernel_plain(
+        ts, b1_rays, True, False,
+        f"998,284 triangles, 2^{B1_PLAIN_LOG2} rays of the main path, "
+        "occluded")
+    full_err = max(full_err, e_occ)
+    del b1_rays
     brute_check("treelet path", cs.tris, rays, valid, hits.t)
 
     # -- 6. packet path at full size -----------------------------------------
@@ -1832,15 +1928,17 @@ def main() -> int:
     brute_check("(b) 2^15 incoherent rays", cs.tris, few, h_few.valid,
                 h_few.t)
     # the packet kernel against the treelet kernel on the same rays
+    nvs = 1 << B2_VS_B1_LOG2
+    head = Rays(*(a[:nvs].contiguous() for a in rays))
     t_b2, p_b2 = pk.intersect_packet_kernel_raw(cs.packet, head)
-    t_b1, v_b1 = hits.t[:nb1], valid[:nb1]
+    t_b1, v_b1 = hits.t[:nvs], valid[:nvs]
     if not torch.equal(p_b2 >= 0, v_b1):
         raise AssertionError("packet vs rowtrace2: valid masks differ")
     rel = float(((t_b2 - t_b1).abs() / t_b1.abs())[v_b1].max())
-    same_prim = float((p_b2 == hits.gprim[:nb1])[v_b1].float().mean())
+    same_prim = float((p_b2 == hits.gprim[:nvs])[v_b1].float().mean())
     if not rel <= 1e-5:
         raise AssertionError(f"packet vs rowtrace2: t differs by {rel:g}")
-    log(f"  packet vs rowtrace2 on the first 2^{B1_PLAIN_LOG2} rays of the "
+    log(f"  packet vs rowtrace2 on the first 2^{B2_VS_B1_LOG2} rays of the "
         f"main path: same valid mask, t within {rel:g} relative, prim equal "
         f"on {100 * same_prim:.4f} % of the hits")
     nb2 = 1 << B2_PLAIN_LOG2
@@ -1970,8 +2068,8 @@ def main() -> int:
             ("intersect request, packet path (b), coherent frame",
              lambda: scene.intersect(frame, coherent=True))):
         log(f"  {label}: {time_ms(fn):.3f} ms")
-    log(f"  rowtrace2 plain version, 2^{B1_PLAIN_LOG2} rays closest: "
-        f"{plain_ms:.0f} ms")
+    log(f"  rowtrace2 plain version (counting), 2^{B1_PLAIN_LOG2} rays: "
+        f"closest {plain_ms:.0f} ms, occluded {plain_occ_ms:.0f} ms")
     stats = {}
     for mode, occl in (("closest", False), ("occluded", True)):
         _t, _p, st = rt2.rowtrace2_stats(ts, rays, occluded=occl)
@@ -2037,13 +2135,19 @@ def main() -> int:
     log(f"  commit {commit_s:.1f} s: " + ", ".join(
         f"{k} {prof.stats(k)['avg']:.2f} s" for k in prof.samples))
     cells = pc.num_tiles * (1 << pc.comp_level) ** 2
+    rec_bytes = 4 * pc.tiles.shape[1]
     log(f"  {faces} faces, {pc.num_tiles} tiles of "
         f"{(1 << pc.comp_level) ** 2} cells = {cells} cells, top BVH4 of "
         f"{pc.num_nodes} nodes in {pc.top_depth} levels; a tile uses "
-        f"{tile_used_bytes(pc)} B of the {tile_row_bytes(pc)} B it is laid "
-        f"out in; packed accel {pc.device_bytes / 1e6:.1f} MB on the card, "
-        f"the committed scene {_scene_bytes(ccs) / 1e6:.1f} MB in all (it "
-        "keeps the unpacked tiles beside the packed rows)")
+        f"{tile_used_bytes(pc)} B in a compact record of {rec_bytes} B (the "
+        f"JAX package's rows: {tile_row_bytes(pc)} B); the compact accel "
+        f"{pc.device_bytes / 1e6:.1f} MB on the card (the rows "
+        f"{packed_row_bytes(pc) / 1e6:.1f} MB), the committed scene "
+        f"{_scene_bytes(ccs) / 1e6:.1f} MB in all (of the accel itself only "
+        "its ids and uv tables)")
+    if (rec_bytes > 1.1 * tile_used_bytes(pc)
+            or ccs.compressed.tiles.space is not None):
+        raise AssertionError("the committed compressed scene is not compact")
     tiles_a_face = (1 << (SUBDIV_LEVELS[0] - SUBDIV_LEVELS[1])) ** 2
     if ccs.tris.num_prims != 0 or pc.num_tiles != faces * tiles_a_face:
         raise AssertionError("the full-size scene is not subdiv-only with "
@@ -2072,12 +2176,18 @@ def main() -> int:
     nb4 = 1 << B4_PLAIN_LOG2
     head4 = Rays(*(a[:nb4].contiguous() for a in rays))
     cb_full_err, cb_plain_ms, cbo_plain_ms, cbo_full_err = compare_cbvh_plain(
-        pc, head4, f"{pc.num_tiles} tiles, the first 2^{B4_PLAIN_LOG2} rays "
-        "of the main path")
+        pc, head4, f"{pc.num_tiles} tiles, 2^{B4_PLAIN_LOG2} rays of the "
+        "main path")
+    e_fr, _, _, o_fr = compare_cbvh_plain(
+        pc, frame_flat, f"{pc.num_tiles} tiles, the {FRAME[0]}x{FRAME[1]} "
+        "frame")
+    cb_full_err, cbo_full_err = max(cb_full_err, e_fr), max(cbo_full_err,
+                                                            o_fr)
     t_head = ck.intersect_compressed_kernel(pc, head4)
     if not (torch.equal(t_head.t, h_c.t[:nb4])
             and torch.equal(t_head.u, h_c.u[:nb4])):
         raise AssertionError("the request and the kernel's wrapper disagree")
+    del head4, t_head
     # the eager tessellation of the same mesh, traced by the packet kernel
     t0 = time.perf_counter()
     eager = subdiv_scene("", big_mesh, SUBDIV_LEVELS)
@@ -2106,6 +2216,8 @@ def main() -> int:
     small_faces = len(small_mesh[1])
     n18 = 1 << 18
     r18 = Rays(*(a[:n18].contiguous() for a in rays))
+    nbs = 1 << B4_SMALL_LOG2
+    heads = Rays(*(a[:nbs].contiguous() for a in rays))
     eager_s = subdiv_scene("", small_mesh, SUBDIV_SMALL_LEVELS)
     h_es = eager_s.intersect(r18)
     by_mode = {}
@@ -2121,8 +2233,7 @@ def main() -> int:
             raise AssertionError(f"{mode}: a hit is not occluded")
         by_mode[mode] = (sc, h)
         err, _, _, occ_err = compare_cbvh_plain(
-            sc.committed.compressed_kernel,
-            Rays(*(a[:nb4].contiguous() for a in rays)),
+            sc.committed.compressed_kernel, heads,
             f"{mode}, {sc.committed.compressed_kernel.num_tiles} tiles")
         cb_full_err = max(cb_full_err, err)
         cbo_full_err = max(cbo_full_err, occ_err)
@@ -2137,7 +2248,7 @@ def main() -> int:
     both = h_g.valid & h_es.valid
     dabs = (h_g.t - h_es.t)[both].abs()
     dmax, d99 = float(dabs.max()), float(dabs.quantile(0.99))
-    gverts, gidx = grid_triangles(sc_g.committed.compressed.tiles)
+    gverts, gidx = grid_triangles(sc_g.committed.compressed_kernel)
     gscene = ett.Scene(ett.Device(
         "ignore_config_files=1,tri_accel=bvh4.triangle4.packet"))
     gscene.attach(ett.TriangleMesh(gverts, gidx))
@@ -2158,14 +2269,14 @@ def main() -> int:
         if sc.committed.compressed_kernel is not None:
             raise AssertionError(f"{mode}/{flavor} has a packed accel")
         with Launches() as lc:
-            h = sc.intersect(head4)
-            o = sc.occluded(head4)
+            h = sc.intersect(heads)
+            o = sc.occluded(heads)
             torch.cuda.synchronize()
         lc.expect_cbvh(f"{mode}/{flavor}", 0, 0)
-        check_subdiv_hits(f"{mode}/{flavor}", h, (nb4,), small_faces)
+        check_subdiv_hits(f"{mode}/{flavor}", h, (nbs,), small_faces)
         if (h.valid & ~o).any():
             raise AssertionError(f"{mode}/{flavor}: a hit is not occluded")
-        ref_h = hits_head(h_es, nb4)
+        ref_h = hits_head(h_es, nbs)
         check_conservative(f"{mode}/{flavor} (torch ops) vs eager triangles",
                            ref_h, h)
     # a mixed scene: the sphere over a ground plane of triangles
@@ -2245,7 +2356,7 @@ def main() -> int:
             ("intersect request, compressed path, coherent frame",
              lambda: sub.intersect(frame, coherent=True))):
         log(f"  {label}: {time_ms(fn):.3f} ms")
-    log(f"  plain versions, 2^{B4_PLAIN_LOG2} rays: closest "
+    log(f"  plain versions (counting), 2^{B4_PLAIN_LOG2} rays: closest "
         f"{cb_plain_ms:.0f} ms, occluded {cbo_plain_ms:.0f} ms")
 
     # -- 13. the motion-blur path at full size ------------------------------
@@ -2617,26 +2728,29 @@ def main() -> int:
         f"hairball-flat {hb_plain_ms:.0f} + {hbo_plain_ms:.0f} ms")
 
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
-    # treelet path (2^21 rays, 998,284 triangles), plain_ms to its first
-    # 2^18 rays. packet: ms and bound_ms belong to the closest-hit launch
-    # of (a) (2^21 rays, 99,012 triangles), plain_ms to its first 2^16 rays.
-    # cbvh and cbvh_occluded: ms and bound_ms belong to the 2^21 incoherent
-    # rays on the main-c scene (`pc.num_tiles` tiles), plain_ms to their
-    # first 2^16 rays; cbvh_occluded's max_abs_err counts the rays whose
-    # answer differs from the plain version's. mb and mb_occluded: ms and
+    # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
+    # rays (the counting plain version). packet: ms and bound_ms belong to
+    # the closest-hit launch of (a) (2^21 rays, 99,012 triangles), plain_ms
+    # to its first 2^16 rays. cbvh and cbvh_occluded: ms and bound_ms
+    # belong to the 2^21 incoherent rays on the main-c scene
+    # (`pc.num_tiles` tiles), plain_ms to the same rays (counting);
+    # cbvh_occluded's max_abs_err counts the rays whose answer differs
+    # from the plain version's. mb and mb_occluded: ms and
     # bound_ms belong to the 2^21 incoherent rays at random times on
     # main-mb, plain_ms to their first 2^16 rays; mb_occluded's
     # max_abs_err counts the rays whose answer differs. hair_cone(_occluded)
     # and hair_ribbon(_occluded): ms and bound_ms belong to the one launch
     # over every cluster of main-hair (cone) and hairball-flat (ribbon) for
     # the 2^21 incoherent rays, plain_ms to their first 2^16 rays. Every
-    # max_abs_err includes phase 3f's NaN and Inf lanes
+    # max_abs_err includes phase 3f's NaN and Inf lanes, and those of B1,
+    # B4 and B5 phase 3g's watertight rays
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
         "replaces": "embree_tpu/traverse/rowtrace2.py:153",
         "launches": Launches.totals["rowtrace2"],
-        "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"]),
+        "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"],
+                           wt_err["rowtrace2"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": nb1,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -2657,7 +2771,8 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/cbvh.cu",
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:175",
         "launches": Launches.totals["cbvh"],
-        "max_abs_err": max(cb_small_err, cb_full_err, lane_err["cbvh"]),
+        "max_abs_err": max(cb_small_err, cb_full_err, lane_err["cbvh"],
+                           wt_err["cbvh"]),
         "ms": cb_inc["closest"]["ms"], "plain_ms": cb_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["closest"]["bound"]["bound_ms"],
@@ -2669,7 +2784,8 @@ def main() -> int:
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:771",
         "launches": Launches.totals["cbvh_occluded"],
         "max_abs_err": max(cbo_small_err, cbo_full_err,
-                           lane_err["cbvh_occluded"]),
+                           lane_err["cbvh_occluded"],
+                           wt_err["cbvh_occluded"]),
         "ms": cb_inc["occluded"]["ms"], "plain_ms": cbo_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["occluded"]["bound"]["bound_ms"],

@@ -152,7 +152,7 @@ class CompressedTiles(NamedTuple):
 
     @property
     def num_tiles(self):
-        return self.space.shape[0]
+        return self.geom_id.shape[0]
 
 
 @dataclasses.dataclass

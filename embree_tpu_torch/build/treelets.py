@@ -1,11 +1,12 @@
 """Two-level treelet decomposition for the per-ray traversal kernel.
 
-Copy (numpy) of embree_tpu/build/treelets.py's host build, so that the
-port's kernel walks the very blocks the JAX package's kernel walks.
-Every ray traverses independently (single-ray BVH traversal,
-bvh_intersector1.cpp). The layout keeps the 128-lane rows the JAX
-package chose for its per-lane gathers; a layout made for the GPU waits
-until parity with that package holds:
+Copy (numpy) of embree_tpu/build/treelets.py's host build, byte-equal to
+the JAX package's blocks (`TreeletSceneNP`). Every ray traverses
+independently (single-ray BVH traversal, bvh_intersector1.cpp). The
+blocks keep the 128-lane rows the JAX package chose for its per-lane
+gathers; `compact_treelets` rewrites them into the records the CUDA
+kernel reads with 16-byte loads (`TreeletScene`, the one form on the
+device):
 
   scene
    └─ mids   (≤ 256): union boxes of FAN consecutive treelets;
@@ -33,6 +34,16 @@ Block layout per treelet, f32 (BLOCK_ROWS=52, 128) rows:
                v0a/e1a/e2a (9), v0b/e1b/e2b (9), pid_a, pid_b
   rows 32..51  leaf chunk 1 (pairs 128..255), same 20 fields.
 Prim ids are stored as int32 BIT PATTERNS in the f32 planes.
+
+Compact form (`compact_treelets`, every word the block word it came from):
+  nodes     (Ntr_pad, 85, 12) f32  an inner slot's 12 packed-bf16 words,
+            word a*4+c = axis a of child c: three float4s (x, y, z of the
+            four children), 48 B a record
+  pairs     (Ntr_pad, 256, 20) f32  a leaf pair's 20 fields in block
+            order (v0a e1a e2a, v0b e1b e2b, pid_a, pid_b): five float4s
+  fan_boxes (Ntr_pad, 8) f32  a treelet's box [lo3 hi3 0 0]: one 32-B
+            sector, a mid's fan one after another
+  mid_boxes (M, 8) f32  [lo3 hi3 0 0]
 """
 from __future__ import annotations
 
@@ -50,14 +61,17 @@ L3_BASE = 21           # first L3 inner slot
 NODE_ROWS = 12         # packed-bf16 bound rows (2 fields per row)
 LEAF_FIELDS = 20       # per-chunk leaf rows
 BLOCK_ROWS = NODE_ROWS + 2 * LEAF_FIELDS   # 52
+BOX_WORDS = 8          # floats of a compact fan or mid box: lo3 hi3 0 0
 
 
 class TreeletScene(NamedTuple):
-    """Device-side treelet scene: torch tensors + static ints."""
+    """Device-side treelet scene in its compact form (`compact_treelets`):
+    torch tensors + static ints."""
 
-    blocks: torch.Tensor      # (Ntr_pad, BLOCK_ROWS, 128) f32
-    mid_boxes: torch.Tensor   # (M, 6) f32 [lo3 hi3]
-    tre_boxes: torch.Tensor   # (M, 6, 128) f32, lanes >= fan are pad boxes
+    nodes: torch.Tensor       # (Ntr_pad, N_INNER, NODE_ROWS) f32
+    pairs: torch.Tensor       # (Ntr_pad, N_PAIRS, LEAF_FIELDS) f32
+    fan_boxes: torch.Tensor   # (Ntr_pad, BOX_WORDS) f32 [lo3 hi3 0 0]
+    mid_boxes: torch.Tensor   # (M, BOX_WORDS) f32 [lo3 hi3 0 0]
     fan: int
     num_mids: int
     num_treelets: int
@@ -66,7 +80,35 @@ class TreeletScene(NamedTuple):
     @property
     def device_bytes(self) -> int:
         return sum(a.numel() * a.element_size()
-                   for a in (self.blocks, self.mid_boxes, self.tre_boxes))
+                   for a in (self.nodes, self.pairs, self.fan_boxes,
+                             self.mid_boxes))
+
+
+def _box_rows(boxes: np.ndarray) -> np.ndarray:
+    """(n, 6) boxes [lo3 hi3] as (n, BOX_WORDS) rows with zero pads."""
+    out = np.zeros((boxes.shape[0], BOX_WORDS), np.float32)
+    out[:, :6] = boxes
+    return out
+
+
+def compact_treelets(blocks, mid_boxes, tre_boxes, fan: int) -> dict:
+    """The JAX package's treelet arrays (`TreeletSceneNP`'s blocks, mid
+    boxes (M, 6) and per-mid treelet planes (M, 6, 128)) as the compact
+    numpy arrays `TreeletScene` holds. Every word is the word it came
+    from, bit for bit."""
+    blocks = np.asarray(blocks, np.float32)
+    tre_boxes = np.asarray(tre_boxes, np.float32)
+    M = tre_boxes.shape[0]
+    nodes = blocks[:, :NODE_ROWS, :N_INNER].transpose(0, 2, 1)
+    chunks = [blocks[:, NODE_ROWS + k * LEAF_FIELDS:
+                     NODE_ROWS + (k + 1) * LEAF_FIELDS, :].transpose(0, 2, 1)
+              for k in (0, 1)]
+    fan_boxes = tre_boxes[:, :, :fan].transpose(0, 2, 1).reshape(M * fan, 6)
+    return {"nodes": np.ascontiguousarray(nodes),
+            "pairs": np.ascontiguousarray(np.concatenate(chunks, axis=1)),
+            "fan_boxes": _box_rows(fan_boxes),
+            "mid_boxes": _box_rows(np.asarray(mid_boxes,
+                                              np.float32).reshape(M, 6))}
 
 
 class TreeletSceneNP(NamedTuple):
@@ -81,11 +123,12 @@ class TreeletSceneNP(NamedTuple):
     num_prims: int
 
     def to_device(self, device) -> TreeletScene:
+        """The compact form (`compact_treelets`) on `device`."""
         device = torch.device(device)
+        arrs = compact_treelets(self.blocks, self.mid_boxes, self.tre_boxes,
+                                self.fan)
         return TreeletScene(
-            blocks=torch.from_numpy(self.blocks).to(device),
-            mid_boxes=torch.from_numpy(self.mid_boxes).to(device),
-            tre_boxes=torch.from_numpy(self.tre_boxes).to(device),
+            **{k: torch.from_numpy(v).to(device) for k, v in arrs.items()},
             fan=self.fan, num_mids=self.num_mids,
             num_treelets=self.num_treelets, num_prims=self.num_prims)
 

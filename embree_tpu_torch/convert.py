@@ -17,7 +17,7 @@ import torch
 
 from .build.bvh import BVH
 from .build.cbvh import CompressedTiles
-from .build.treelets import BLOCK_ROWS, TreeletScene
+from .build.treelets import BLOCK_ROWS, TreeletScene, compact_treelets
 from .scene.prims import TrianglePrims
 from .scene.scene import CommittedScene, HairEntry
 from .traverse.cbvh import CompressedAccel
@@ -48,10 +48,11 @@ def committed_scene_from_reference(arrays: dict, device) -> CommittedScene:
     `rowtrace.blocks`
     (Ntr, 52, 128) f32, `rowtrace.mid_boxes` (M, 6) or flat (M*6,) f32,
     `rowtrace.tre_boxes` (M, 6, 128) f32, `rowtrace.fan`,
-    `rowtrace.num_mids`, `rowtrace.num_treelets`, `rowtrace.num_prims`;
-    `prim_mask` (T,) i32; `world_lower`, `world_upper` (3,) f32;
-    `backface_cull` bool. The `rowtrace.*` keys are absent for a scene
-    without a treelet scene, the `packet.*` keys for an empty scene."""
+    `rowtrace.num_mids`, `rowtrace.num_treelets`, `rowtrace.num_prims`
+    (compacted here, build/treelets.py::compact_treelets); `prim_mask`
+    (T,) i32; `world_lower`, `world_upper` (3,) f32; `backface_cull` bool.
+    The `rowtrace.*` keys are absent for a scene without a treelet scene,
+    the `packet.*` keys for an empty scene."""
     device = torch.device(device)
     f32, i32 = np.float32, np.int32
     tris = TrianglePrims(
@@ -97,12 +98,14 @@ def committed_scene_from_reference(arrays: dict, device) -> CommittedScene:
         blocks = np.asarray(arrays["rowtrace.blocks"])
         if blocks.dtype != f32 or blocks.shape != (n_tre, BLOCK_ROWS, 128):
             raise ValueError(f"rowtrace.blocks: {blocks.dtype} {blocks.shape}")
+        tre_boxes = np.asarray(arrays["rowtrace.tre_boxes"], f32)
+        if tre_boxes.shape != (M, 6, 128):
+            raise ValueError(f"rowtrace.tre_boxes: {tre_boxes.shape}")
+        compact = compact_treelets(
+            blocks, np.asarray(arrays["rowtrace.mid_boxes"], f32).reshape(M, 6),
+            tre_boxes, fan)
         rowtrace = TreeletScene(
-            blocks=_tensor(blocks, f32, device),
-            mid_boxes=_tensor(arrays["rowtrace.mid_boxes"], f32, device,
-                              (M, 6)),
-            tre_boxes=_tensor(arrays["rowtrace.tre_boxes"], f32, device,
-                              (M, 6, 128)),
+            **{k: _tensor(v, f32, device) for k, v in compact.items()},
             fan=fan, num_mids=M, num_treelets=n_tre,
             num_prims=int(arrays["rowtrace.num_prims"]))
     return CommittedScene(

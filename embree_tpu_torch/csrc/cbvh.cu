@@ -1,7 +1,8 @@
-// Compressed-patch (cBVH) traversal, one thread per ray, over the packed
-// accel that traverse/cbvh_kernel.py::pack_compressed lays out (rows of
-// 128 lanes: BVH4 node rows, and per tile a header row, a row of 4-byte
-// node words, a row of leaf words or eight rows of grid vertices).
+// Compressed-patch (cBVH) traversal, one thread per ray, over the compact
+// accel of traverse/cbvh_kernel.py::pack_compact: top-level BVH4 node
+// rows of 32 floats (128 bytes), and one contiguous record a tile (the 44
+// header floats, the node words, then the leaf words or the grid
+// vertices, each section 16-byte aligned).
 //
 //   cbvh_kernel           closest hit: t, tile-local u and v, tile
 //   cbvh_occluded_kernel  conservative occlusion: a ray is occluded when
@@ -46,18 +47,39 @@
 // construction.
 //
 // What bounds it on an H100: bytes for incoherent rays (a ray brings and
-// takes 48 bytes and touches a few tiles of three 512-byte rows, of which
-// about 390 bytes are used in 'leaf' mode at level 3), operations for a
-// coherent frame whose tiles stay in L2. The kernel runs far from either
-// bound: it waits on dependent loads (pop -> node row -> header -> word)
-// and loses lanes to divergence between the top-level walk, tile entry
-// and the quadtree. The design spends little on that yet: the used part
-// of a node row is one 128-byte line read as eight float4s, header values
-// are read through __ldg where they are used instead of being held in
-// registers, the tables sit in __constant__ memory, both stacks live in
-// local memory (1.5 KB + 364 B a thread). A compact tile layout, a
-// warp-wide tile entry and a shared-memory stack are later work. PERF.md
-// has the measured times and the bounds.
+// takes 48 bytes and touches a few node rows and tiles), operations for a
+// coherent frame whose tiles stay in L2. The kernel waits on dependent
+// loads (pop -> node row -> tile header -> node word) and loses lanes to
+// divergence between the top-level walk, tile entry and the quadtree. The
+// design:
+//
+//   * a thread walks top-level nodes until it pops a tile (or its stack
+//     empties), and only then enters the tile and walks its quadtree, so
+//     the threads of a warp enter their tiles together instead of one
+//     tile entry and quadtree walk at a time while the others wait;
+//   * persistent threads: as many blocks as the card holds, a thread
+//     whose ray is done taking the next one from the launch's counter, so
+//     a warp does not wait for its longest ray;
+//   * a node row is one 128-byte line read as eight float4s, and the rows
+//     lie back to back (4 MB at 32,080 nodes), where the JAX package's
+//     512-byte rows used a quarter of each;
+//   * a tile is one record (400 bytes in 'leaf' mode at level 3, where
+//     three 512-byte rows held 388 used bytes), so the leaf-mode tiles of
+//     the 4M-cell scene fit the 50 MB L2; its header is read once, at
+//     tile entry, as eleven float4s, and what the quadtree walk reuses
+//     (iproj, extent) stays in registers;
+//   * the top-level stack is sized from the tree: 3 * 16 + 1 entries for a
+//     top level of at most 16 levels (main-c has 11), 3 * 64 + 1 above
+//     (the wrapper checks 64);
+//   * the quantization tables are staged in shared memory, which serves
+//     a warp's different entries at once (__constant__ memory serves
+//     different addresses one after another);
+//   * the quadtree stack (3 * level + 1 entries of a node and its box)
+//     lives in shared memory, laid out thread-minor, in the main and the
+//     counting build alike (local memory measured 0-7 % slower on 2^21
+//     incoherent rays, PERF.md).
+//
+// PERF.md has the measured times and the bounds.
 //
 // Build with -fmad=false: the plain PyTorch version rounds every product
 // before it is added, and the two are held equal bit for bit.
@@ -69,14 +91,15 @@
 
 namespace {
 
-constexpr int ROW = 128;           // lanes in every row
-constexpr int GRID_ROWS = 8;       // rows of a tile's grid
+constexpr int NODE_VEC = 8;        // float4s of a top-level node row
+constexpr int HDR_VEC = 11;        // float4s of a tile header (44 floats)
 constexpr int MAX_DEPTH = 64;      // deepest top level the stack serves
-constexpr int STACK = 3 * MAX_DEPTH + 1;
+constexpr int SHALLOW = 16;        // top levels the small stack serves
 constexpr int MAX_LEVEL = 4;       // compression levels 1..4
-constexpr int QSTACK = 3 * MAX_LEVEL + 1;
+constexpr int QWORDS = 7;          // a quadtree stack entry: node, box
 constexpr int THREADS = 128;
 constexpr int SENT = INT_MIN;      // "child not pushed"
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 
 constexpr int MODE_BOX = 0;
 constexpr int MODE_LEAF = 1;
@@ -95,7 +118,8 @@ __constant__ float TABLE_MID[8] = {0.0f,  0.40f, 0.48f, 0.49f,
                                    0.50f, 0.51f, 0.52f, 0.60f};
 __constant__ float TABLE_Z[4] = {0.0f, 0.25f, 0.5f, 0.75f};
 
-// header lanes
+// header floats: space 0, proj 9, iproj 18, frustum 27 (z0, z1, then the
+// corners p00 p10 p01 p11), uv0 37, uvd 39, extent 41, geom 42, prim 43
 constexpr int H_PROJ = 9, H_IPROJ = 18, H_Z0 = 27, H_Z1 = 28, H_P00 = 29,
               H_P10 = 31, H_P01 = 33, H_P11 = 35, H_EXTENT = 41;
 
@@ -166,13 +190,12 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
   return r;
 }
 
-// The used part of a top-level node row: 32 floats, one 128-byte line.
-__device__ __forceinline__ void load_node(const float* __restrict__ topnodes,
+// A top-level node row: 32 floats, one 128-byte line, eight float4s.
+__device__ __forceinline__ void load_node(const float4* __restrict__ topnodes,
                                           int node, float* f) {
-  const float4* row =
-      reinterpret_cast<const float4*>(topnodes + static_cast<size_t>(node) * ROW);
+  const float4* row = topnodes + static_cast<size_t>(node) * NODE_VEC;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
+  for (int q = 0; q < NODE_VEC; ++q) {
     const float4 v = __ldg(row + q);
     f[4 * q + 0] = v.x;
     f[4 * q + 1] = v.y;
@@ -243,20 +266,16 @@ __device__ __forceinline__ void tile_slab(const TileRay& q, float lx, float ly,
   tmin = maxp(tmin, 0.0f);
 }
 
-// Tile-local distance back to world distance.
-__device__ __forceinline__ float world_t(const float* __restrict__ h,
-                                         const TileRay& q, float th) {
+// Tile-local distance back to world distance; `ip` is the tile's iproj.
+__device__ __forceinline__ float world_t(const float* ip, const TileRay& q,
+                                         float th) {
   if (!q.flat) return th / q.zf + q.near;
   const float px = q.pox + th * q.pdx;
   const float py = q.poy + th * q.pdy;
   const float pz = q.poz + th * q.pdz;
-  const float w = clamp_den(__ldg(h + H_IPROJ + 6) * px +
-                            __ldg(h + H_IPROJ + 7) * py +
-                            __ldg(h + H_IPROJ + 8));
-  const float ux = (__ldg(h + H_IPROJ + 0) * px + __ldg(h + H_IPROJ + 1) * py +
-                    __ldg(h + H_IPROJ + 2)) / w;
-  const float uy = (__ldg(h + H_IPROJ + 3) * px + __ldg(h + H_IPROJ + 4) * py +
-                    __ldg(h + H_IPROJ + 5)) / w;
+  const float w = clamp_den(ip[6] * px + ip[7] * py + ip[8]);
+  const float ux = (ip[0] * px + ip[1] * py + ip[2]) / w;
+  const float uy = (ip[3] * px + ip[4] * py + ip[5]) / w;
   const float fx = ux - q.lox;
   const float fy = uy - q.loy;
   const float fz = pz - q.loz;
@@ -310,126 +329,122 @@ __device__ __forceinline__ bool moeller(const float* a, const float* b,
   return ok;
 }
 
-template <int MODE, bool STATS>
+// The quadtree stack of one thread: entries of (node, box of 6 floats),
+// in dynamic shared memory laid out thread-minor (word w of entry e of
+// thread x at (e * QWORDS + w) * THREADS + x), so that a warp's accesses
+// to one word fall in distinct banks.
+struct QStack {
+  float* base;
+  __device__ __forceinline__ explicit QStack(float* smem)
+      : base(smem + threadIdx.x) {}
+  __device__ __forceinline__ void push(int e, int n, float lx, float ly,
+                                       float lz, float hx, float hy,
+                                       float hz) {
+    float* p = base + e * QWORDS * THREADS;
+    p[0] = __int_as_float(n);
+    p[THREADS] = lx;
+    p[2 * THREADS] = ly;
+    p[3 * THREADS] = lz;
+    p[4 * THREADS] = hx;
+    p[5 * THREADS] = hy;
+    p[6 * THREADS] = hz;
+  }
+  __device__ __forceinline__ int pop(int e, float* b) const {
+    const float* p = base + e * QWORDS * THREADS;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = p[(k + 1) * THREADS];
+    return __float_as_int(p[0]);
+  }
+};
+
+template <int MODE, bool STATS, int DEPTH>
 __global__ void __launch_bounds__(THREADS)
-cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
-            const float* __restrict__ theader,      // (T, 128)
-            const int* __restrict__ tnodes,         // (T, 128)
-            const int* __restrict__ tleaf,          // (T, 128)
-            const float* __restrict__ tgrid,        // (T, 8, 128), grid mode
+cbvh_kernel(const float4* __restrict__ topnodes,    // (M, 8) float4
+            const float* __restrict__ tiles,        // (T, tile_words)
             const int* __restrict__ tile_of_leaf,   // (T,)
-            int comp_level,
+            int comp_level, int tile_words,
             const float* __restrict__ org,          // (R, 3)
             const float* __restrict__ dir,          // (R, 3)
             const float* __restrict__ tnear,
             const float* __restrict__ tfar, long long num_rays,
             float* __restrict__ t_out, float* __restrict__ u_out,
             float* __restrict__ v_out, int* __restrict__ tile_out,
+            unsigned long long* __restrict__ next_ray,  // [1], zero
             unsigned long long* __restrict__ stats,  // [5], STATS only
             int* __restrict__ node_touched,          // [M], STATS only
             int* __restrict__ tile_touched) {        // [T], STATS only
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= num_rays) return;
-
-  const Ray r = load_ray(org, dir, tnear, i);
+  constexpr int STACK = 3 * DEPTH + 1;
+  // the quadtree stacks: (3 * comp_level + 1) * QWORDS * THREADS floats
+  extern __shared__ float qstacks[];
+  // the quantization tables in shared memory: a warp's lanes look up
+  // different entries, which __constant__ memory serves one at a time
+  __shared__ float tables[8 + 8 + 4];
+  for (int k = threadIdx.x; k < 20; k += blockDim.x)
+    tables[k] = k < 8 ? TABLE_BORDER[k]
+                      : (k < 16 ? TABLE_MID[k - 8] : TABLE_Z[k - 16]);
+  __syncthreads();
+  const float* __restrict__ t_border = tables;
+  const float* __restrict__ t_mid = tables + 8;
+  const float* __restrict__ t_z = tables + 16;
+  const int lane = threadIdx.x & 31;
   const int g = 1 << comp_level;
   const int elems = ((1 << (2 * comp_level)) - 1) / 3;
+  // sections of a tile record: header, node words, leaf words or grid
+  const int node_ofs = HDR_VEC * 4;
+  const int leaf_ofs = node_ofs + ((elems + 3) & ~3);
   const float rcp_edges = 1.0f / static_cast<float>(g);
 
-  float t = tfar[i];
-  float u = 0.0f, v = 0.0f;
-  int tile = -1;
   unsigned n_top = 0, n_tiles = 0, n_quad = 0, n_leaves = 0, n_drops = 0;
+  QStack qs(qstacks);
 
+  // the ray this thread walks: index, state, answer
+  long long i = 0;
+  bool have = false, exhausted = false;
+  Ray r = {};
+  float t = 0.0f, u = 0.0f, v = 0.0f;
+  int tile = -1;
   int sref[STACK];
   float sdist[STACK];
-  int sp = 1;
-  sref[0] = 0;  // root
-  sdist[0] = -INFINITY;
+  int sp = 0;
 
-  int qnode[QSTACK];
-  float qbox[QSTACK][6];
-
-  while (sp > 0) {
-    --sp;
-    const int ref = sref[sp];
-    if (sdist[sp] > t) continue;
-
-    if (ref >= 0) {
-      // ---- top-level node
-      if (STATS) {
-        n_top += 1;
-        node_touched[ref] = 1;
-      }
-      float f[32];
-      load_node(topnodes, ref, f);
-      // candidates in DESCENDING slot order, so that the stable sort
-      // leaves the higher slot first among equal distances and the lower
-      // slot on top of the stack
-      float key[4];
-      int cref[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float tmin, tmax;
-        top_slab(f, c, r, tmin, tmax);
-        // child and count are exact small floats in the row
-        const int cc = static_cast<int>(f[24 + c]);
-        const int cnt = static_cast<int>(f[28 + c]);
-        const bool ok = (tmin <= tmax) && (tmin <= t) && (cnt >= 0);
-        key[3 - c] = ok ? tmin : -INFINITY;
-        cref[3 - c] =
-            ok ? (cnt > 0 ? -(__ldg(tile_of_leaf + cc) + 1) : cc) : SENT;
-      }
-      sort4(key, cref);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (cref[k] != SENT) {
-          if (sp < STACK) {
-            sref[sp] = cref[k];
-            sdist[sp] = key[k];
-            ++sp;
-          } else if (STATS) {
-            // unreachable for a top level of at most MAX_DEPTH levels,
-            // which the wrapper checks; counted all the same
-            n_drops += 1;
-          }
-        }
-      }
-      continue;
-    }
-
-    // ---- tile entry
-    const int ti = -ref - 1;
+  // A tile: entry, then its quadtree (everything of a ray's walk below the
+  // top level); it only ever lowers t.
+  auto enter_tile = [&](int ti) {
+    // ---- tile entry: the header once, as eleven float4s
     if (STATS) {
       n_tiles += 1;
       tile_touched[ti] = 1;
     }
-    const float* __restrict__ h = theader + static_cast<size_t>(ti) * ROW;
+    const float* __restrict__ rec =
+        tiles + static_cast<size_t>(ti) * tile_words;
+    float h[HDR_VEC * 4];
+#pragma unroll
+    for (int k = 0; k < HDR_VEC; ++k) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(rec) + k);
+      h[4 * k + 0] = w.x;
+      h[4 * k + 1] = w.y;
+      h[4 * k + 2] = w.z;
+      h[4 * k + 3] = w.w;
+    }
     TileRay q;
     float ldx, ldy, ldz;
-    {
-      const float s0 = __ldg(h + 0), s1 = __ldg(h + 1), s2 = __ldg(h + 2);
-      const float s3 = __ldg(h + 3), s4 = __ldg(h + 4), s5 = __ldg(h + 5);
-      const float s6 = __ldg(h + 6), s7 = __ldg(h + 7), s8 = __ldg(h + 8);
-      q.lox = s0 * r.ox + s1 * r.oy + s2 * r.oz;
-      q.loy = s3 * r.ox + s4 * r.oy + s5 * r.oz;
-      q.loz = s6 * r.ox + s7 * r.oy + s8 * r.oz;
-      ldx = s0 * r.dx + s1 * r.dy + s2 * r.dz;
-      ldy = s3 * r.dx + s4 * r.dy + s5 * r.dz;
-      ldz = s6 * r.dx + s7 * r.dy + s8 * r.dz;
-    }
-    const float z0 = __ldg(h + H_Z0), z1 = __ldg(h + H_Z1);
+    q.lox = h[0] * r.ox + h[1] * r.oy + h[2] * r.oz;
+    q.loy = h[3] * r.ox + h[4] * r.oy + h[5] * r.oz;
+    q.loz = h[6] * r.ox + h[7] * r.oy + h[8] * r.oz;
+    ldx = h[0] * r.dx + h[1] * r.dy + h[2] * r.dz;
+    ldy = h[3] * r.dx + h[4] * r.dy + h[5] * r.dz;
+    ldz = h[6] * r.dx + h[7] * r.dy + h[8] * r.dz;
+    const float z0 = h[H_Z0], z1 = h[H_Z1];
     float far;
     {
       // frustum entry (compressed_help.h:109-133)
       const float rdz_l = rcp_safe(ldz);
       const float t1z = z0 * rdz_l - q.loz * rdz_l;
       const float t2z = z1 * rdz_l - q.loz * rdz_l;
-      const float p00x = __ldg(h + H_P00), p00y = __ldg(h + H_P00 + 1);
-      const float p10x = __ldg(h + H_P10), p10y = __ldg(h + H_P10 + 1);
-      const float p01x = __ldg(h + H_P01), p01y = __ldg(h + H_P01 + 1);
-      const float p11x = __ldg(h + H_P11), p11y = __ldg(h + H_P11 + 1);
+      const float p00x = h[H_P00], p00y = h[H_P00 + 1];
+      const float p10x = h[H_P10], p10y = h[H_P10 + 1];
+      const float p01x = h[H_P01], p01y = h[H_P01 + 1];
+      const float p11x = h[H_P11], p11y = h[H_P11 + 1];
       float t1x, t2x, t1y, t2y;
       const bool v1x = iline(p00x, p00y, p01x, p01y, q.lox, q.loy, ldx, ldy, t1x);
       const bool v2x = iline(p10x, p10y, p11x, p11y, q.lox, q.loy, ldx, ldy, t2x);
@@ -444,33 +459,26 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       q.near = maxp(maxp(minp(t1z, t2z), near1), r.tnear);
       far = minp(minp(maxp(t1z, t2z), far1), t);
       const bool alive = (q.near <= far) && (v1x || v2x || v1y || v2y);
-      if (!alive) continue;
+      if (!alive) return;
     }
     float tloc;
     {
       // projected ray (compressed.h:464-505)
+      const float* pj = h + H_PROJ;
       float e1x, e1y, e1z, e2x, e2y, e2z;
       {
         const float px = q.lox + q.near * ldx, py = q.loy + q.near * ldy;
         e1z = q.loz + q.near * ldz;
-        const float w = clamp_den(__ldg(h + H_PROJ + 6) * px +
-                                  __ldg(h + H_PROJ + 7) * py +
-                                  __ldg(h + H_PROJ + 8));
-        e1x = (__ldg(h + H_PROJ + 0) * px + __ldg(h + H_PROJ + 1) * py +
-               __ldg(h + H_PROJ + 2)) / w;
-        e1y = (__ldg(h + H_PROJ + 3) * px + __ldg(h + H_PROJ + 4) * py +
-               __ldg(h + H_PROJ + 5)) / w;
+        const float w = clamp_den(pj[6] * px + pj[7] * py + pj[8]);
+        e1x = (pj[0] * px + pj[1] * py + pj[2]) / w;
+        e1y = (pj[3] * px + pj[4] * py + pj[5]) / w;
       }
       {
         const float px = q.lox + far * ldx, py = q.loy + far * ldy;
         e2z = q.loz + far * ldz;
-        const float w = clamp_den(__ldg(h + H_PROJ + 6) * px +
-                                  __ldg(h + H_PROJ + 7) * py +
-                                  __ldg(h + H_PROJ + 8));
-        e2x = (__ldg(h + H_PROJ + 0) * px + __ldg(h + H_PROJ + 1) * py +
-               __ldg(h + H_PROJ + 2)) / w;
-        e2y = (__ldg(h + H_PROJ + 3) * px + __ldg(h + H_PROJ + 4) * py +
-               __ldg(h + H_PROJ + 5)) / w;
+        const float w = clamp_den(pj[6] * px + pj[7] * py + pj[8]);
+        e2x = (pj[0] * px + pj[1] * py + pj[2]) / w;
+        e2y = (pj[3] * px + pj[4] * py + pj[5]) / w;
       }
       const float dxx = e2x - e1x, dyy = e2y - e1y, dzz = e2z - e1z;
       const float az = fabsf(dzz);
@@ -495,40 +503,38 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       q.pory = q.poy * q.prdy;
       q.porz = q.poz * q.prdz;
     }
+    const float* ip = h + H_IPROJ;
+    const float ext = h[H_EXTENT];
+    const int* __restrict__ words = reinterpret_cast<const int*>(rec);
 
     // ---- quadtree walk; root box (-1, -1, z0) .. (1, 1, z1)
     int qsp = 1;
-    qnode[0] = 0;
-    qbox[0][0] = -1.0f;
-    qbox[0][1] = -1.0f;
-    qbox[0][2] = z0;
-    qbox[0][3] = 1.0f;
-    qbox[0][4] = 1.0f;
-    qbox[0][5] = z1;
+    qs.push(0, 0, -1.0f, -1.0f, z0, 1.0f, 1.0f, z1);
     while (qsp > 0) {
       --qsp;
-      const int curr = qnode[qsp];
-      const float blx = qbox[qsp][0], bly = qbox[qsp][1], blz = qbox[qsp][2];
-      const float bhx = qbox[qsp][3], bhy = qbox[qsp][4], bhz = qbox[qsp][5];
+      float bx[6];
+      const int curr = qs.pop(qsp, bx);
+      const float blx = bx[0], bly = bx[1], blz = bx[2];
+      const float bhx = bx[3], bhy = bx[4], bhz = bx[5];
 
       if (curr < elems) {
         // ---- inner node: one word of table indices (getNode,
         // compressed_node.h:489-512)
         if (STATS) n_quad += 1;
-        const unsigned word = static_cast<unsigned>(
-            __ldg(tnodes + static_cast<size_t>(ti) * ROW + curr));
+        const unsigned word =
+            static_cast<unsigned>(__ldg(words + node_ofs + curr));
         const unsigned xz = word & 0xFFu, x_ = (word >> 8) & 0xFFu;
         const unsigned yz = (word >> 16) & 0xFFu, y_ = (word >> 24) & 0xFFu;
-        const float x1 = TABLE_BORDER[(xz >> 5) & 7];
-        const float x2 = TABLE_MID[(xz >> 2) & 7];
-        const float x3 = TABLE_MID[(x_ >> 5) & 7];
-        const float x4 = TABLE_BORDER[(x_ >> 2) & 7];
-        const float y1 = TABLE_BORDER[(yz >> 5) & 7];
-        const float y2 = TABLE_MID[(yz >> 2) & 7];
-        const float y3 = TABLE_MID[(y_ >> 5) & 7];
-        const float y4 = TABLE_BORDER[(y_ >> 2) & 7];
-        const float zq1 = TABLE_Z[xz & 3];
-        const float zq2 = TABLE_Z[yz & 3];
+        const float x1 = t_border[(xz >> 5) & 7];
+        const float x2 = t_mid[(xz >> 2) & 7];
+        const float x3 = t_mid[(x_ >> 5) & 7];
+        const float x4 = t_border[(x_ >> 2) & 7];
+        const float y1 = t_border[(yz >> 5) & 7];
+        const float y2 = t_mid[(yz >> 2) & 7];
+        const float y3 = t_mid[(y_ >> 5) & 7];
+        const float y4 = t_border[(y_ >> 2) & 7];
+        const float zq1 = t_z[xz & 3];
+        const float zq2 = t_z[yz & 3];
         const float dimx = bhx - blx, dimy = bhy - bly, dimz = bhz - blz;
         const float lx[2] = {blx + x1 * dimx, blx + x2 * dimx};
         const float hx[2] = {blx + (1.0f - x3) * dimx, blx + (1.0f - x4) * dimx};
@@ -554,18 +560,13 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
         for (int k = 0; k < 4; ++k) {
           const int c = cref[k];
           if (c != SENT) {
-            if (qsp < QSTACK) {
-              qnode[qsp] = curr * 4 + 1 + c;
-              qbox[qsp][0] = lx[c & 1];
-              qbox[qsp][1] = ly[c >> 1];
-              qbox[qsp][2] = lz;
-              qbox[qsp][3] = hx[c & 1];
-              qbox[qsp][4] = hy[c >> 1];
-              qbox[qsp][5] = hz;
+            if (qsp < 3 * comp_level + 1) {
+              qs.push(qsp, curr * 4 + 1 + c, lx[c & 1], ly[c >> 1], lz,
+                      hx[c & 1], hy[c >> 1], hz);
               ++qsp;
             } else if (STATS) {
-              // unreachable: a depth-first walk of comp_level <= 4 levels
-              // holds at most 13 entries; counted all the same
+              // unreachable: a depth-first walk of comp_level levels holds
+              // at most 3 * comp_level + 1 entries; counted all the same
               n_drops += 1;
             }
           }
@@ -582,8 +583,7 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       if (MODE == MODE_GRID) {
         // two triangles of WORLD-space vertices against the WORLD ray
         // (compressed.h:591-610)
-        const float* __restrict__ gp =
-            tgrid + static_cast<size_t>(ti) * (GRID_ROWS * ROW);
+        const float* __restrict__ gp = rec + leaf_ofs;
         float vv[4][3];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -617,19 +617,18 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
         const float dimy = maxp(bhy - bly, EPS);
         u = ((q.pox + q.pdx * tmin - blx) / dimx + mx) * rcp_edges;
         v = ((q.poy + q.pdy * tmin - bly) / dimy + my) * rcp_edges;
-        t = world_t(h, q, tmin);
+        t = world_t(ip, q, tmin);
         tile = ti;
         tloc = tmin;
         continue;
       }
 
       // MODE_LEAF: pizza box (:541-590 + intersect_patch)
-      const unsigned word = static_cast<unsigned>(
-          __ldg(tleaf + static_cast<size_t>(ti) * ROW + (idx >> 1)));
+      const unsigned word =
+          static_cast<unsigned>(__ldg(words + leaf_ofs + (idx >> 1)));
       const unsigned cw = (idx & 1u) == 0u ? (word & 0xFFFFu) : (word >> 16);
       const unsigned z12 = cw & 0xFFu, z34 = (cw >> 8) & 0xFFu;
       const float dimz = bhz - blz;
-      const float ext = __ldg(h + H_EXTENT);
       const float rng = (1.0f + 2.0f * ext) * dimz;
       const float off = blz - dimz * ext;
       const float rf = rng * 0.0625f;
@@ -670,16 +669,106 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
       const float fyh = first ? fy1 : fy1 + (fy2 - fy1) * dfr;
       u = (fxh + mx) * rcp_edges;
       v = (fyh + my) * rcp_edges;
-      t = world_t(h, q, th);
+      t = world_t(ip, q, th);
       tile = ti;
       tloc = th;
     }
-  }
+  };
 
-  t_out[i] = t;
-  u_out[i] = u;
-  v_out[i] = v;
-  tile_out[i] = tile;
+  // Persistent threads: a thread whose ray is done takes the next one from
+  // the launch's ray counter (one atomic a warp a round), so a warp's
+  // threads stay busy until the rays run out instead of waiting for the
+  // warp's longest ray.
+  while (true) {
+    const bool need = !have && !exhausted;
+    const unsigned want = __ballot_sync(FULL_MASK, need);
+    if (want) {
+      const int leader = __ffs(static_cast<int>(want)) - 1;
+      unsigned long long first = 0;
+      if (lane == leader)
+        first = atomicAdd(next_ray, static_cast<unsigned long long>(
+                                        __popc(want)));
+      first = __shfl_sync(FULL_MASK, first, leader);
+      if (need) {
+        i = static_cast<long long>(first) +
+            __popc(want & ((1u << lane) - 1u));
+        if (i < num_rays) {
+          have = true;
+          r = load_ray(org, dir, tnear, i);
+          t = tfar[i];
+          u = 0.0f;
+          v = 0.0f;
+          tile = -1;
+          sp = 1;
+          sref[0] = 0;  // root
+          sdist[0] = -INFINITY;
+        } else {
+          exhausted = true;
+        }
+      }
+    }
+    if (!__ballot_sync(FULL_MASK, have)) break;
+    if (!have) continue;
+
+    // ---- top-level nodes until the ray pops a tile or its stack empties:
+    // the threads of a warp then enter their tiles together
+    int ti = -1;
+    while (sp > 0) {
+      --sp;
+      const int ref = sref[sp];
+      if (sdist[sp] > t) continue;
+      if (ref < 0) {
+        ti = -ref - 1;
+        break;
+      }
+      if (STATS) {
+        n_top += 1;
+        node_touched[ref] = 1;
+      }
+      float f[32];
+      load_node(topnodes, ref, f);
+      // candidates in DESCENDING slot order, so that the stable sort
+      // leaves the higher slot first among equal distances and the lower
+      // slot on top of the stack
+      float key[4];
+      int cref[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float tmin, tmax;
+        top_slab(f, c, r, tmin, tmax);
+        // child and count are exact small floats in the row
+        const int cc = static_cast<int>(f[24 + c]);
+        const int cnt = static_cast<int>(f[28 + c]);
+        const bool ok = (tmin <= tmax) && (tmin <= t) && (cnt >= 0);
+        key[3 - c] = ok ? tmin : -INFINITY;
+        cref[3 - c] =
+            ok ? (cnt > 0 ? -(__ldg(tile_of_leaf + cc) + 1) : cc) : SENT;
+      }
+      sort4(key, cref);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (cref[k] != SENT) {
+          if (sp < STACK) {
+            sref[sp] = cref[k];
+            sdist[sp] = key[k];
+            ++sp;
+          } else if (STATS) {
+            // unreachable for a top level of at most DEPTH levels, which
+            // the launch checks; counted all the same
+            n_drops += 1;
+          }
+        }
+      }
+    }
+    if (ti >= 0) enter_tile(ti);
+    if (sp == 0) {
+      t_out[i] = t;
+      u_out[i] = u;
+      v_out[i] = v;
+      tile_out[i] = tile;
+      have = false;
+    }
+  }
   if (STATS) {
     atomicAdd(stats + 0, static_cast<unsigned long long>(n_top));
     atomicAdd(stats + 1, static_cast<unsigned long long>(n_tiles));
@@ -689,9 +778,9 @@ cbvh_kernel(const float* __restrict__ topnodes,     // (M, 128)
   }
 }
 
-template <bool STATS>
+template <bool STATS, int DEPTH>
 __global__ void __launch_bounds__(THREADS)
-cbvh_occluded_kernel(const float* __restrict__ topnodes,  // (M, 128)
+cbvh_occluded_kernel(const float4* __restrict__ topnodes,  // (M, 8) float4
                      const float* __restrict__ org,
                      const float* __restrict__ dir,
                      const float* __restrict__ tnear,
@@ -699,6 +788,7 @@ cbvh_occluded_kernel(const float* __restrict__ topnodes,  // (M, 128)
                      unsigned char* __restrict__ occ_out,  // 0 or 1
                      unsigned long long* __restrict__ stats,  // [5]
                      int* __restrict__ node_touched) {        // [M]
+  constexpr int STACK = 3 * DEPTH + 1;
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= num_rays) return;
@@ -751,59 +841,113 @@ cbvh_occluded_kernel(const float* __restrict__ topnodes,  // (M, 128)
   }
 }
 
-template <int MODE, bool STATS>
-void launch(const float* topnodes, const float* theader, const int* tnodes,
-            const int* tleaf, const float* tgrid, const int* tile_of_leaf,
-            int comp_level, const float* org, const float* dir,
-            const float* tnear, const float* tfar, long long num_rays,
-            float* t_out, float* u_out, float* v_out, int* tile_out,
-            unsigned long long* stats, int* node_touched, int* tile_touched,
-            cudaStream_t stream) {
+// The closest-hit kernel's threads are persistent: as many blocks as the
+// card holds at once (fewer for a small batch), each thread taking rays
+// until they run out.
+template <int MODE, bool STATS, int DEPTH>
+void launch(const float4* topnodes, const float* tiles,
+            const int* tile_of_leaf, int comp_level, int tile_words,
+            const float* org, const float* dir, const float* tnear,
+            const float* tfar, long long num_rays, float* t_out,
+            float* u_out, float* v_out, int* tile_out,
+            unsigned long long* next_ray, unsigned long long* stats,
+            int* node_touched, int* tile_touched, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(3 * comp_level + 1) * QWORDS *
+                      THREADS * sizeof(float);
+  auto kern = cbvh_kernel<MODE, STATS, DEPTH>;
+  int per_sm = 0, device = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long blocks = (num_rays + THREADS - 1) / THREADS;
+  const unsigned grid = static_cast<unsigned>(
+      min(blocks, static_cast<long long>(max(per_sm, 1)) * max(sms, 1)));
+  kern<<<grid, THREADS, smem, stream>>>(
+      topnodes, tiles, tile_of_leaf, comp_level, tile_words, org, dir, tnear,
+      tfar, num_rays, t_out, u_out, v_out, tile_out, next_ray, stats,
+      node_touched, tile_touched);
+}
+
+template <bool STATS, int DEPTH>
+void launch_occluded(const float4* topnodes, const float* org,
+                     const float* dir, const float* tnear, const float* tfar,
+                     long long num_rays, unsigned char* occ_out,
+                     unsigned long long* stats, int* node_touched,
+                     cudaStream_t stream) {
   const unsigned grid =
       static_cast<unsigned>((num_rays + THREADS - 1) / THREADS);
-  cbvh_kernel<MODE, STATS><<<grid, THREADS, 0, stream>>>(
-      topnodes, theader, tnodes, tleaf, tgrid, tile_of_leaf, comp_level, org,
-      dir, tnear, tfar, num_rays, t_out, u_out, v_out, tile_out, stats,
-      node_touched, tile_touched);
+  cbvh_occluded_kernel<STATS, DEPTH><<<grid, THREADS, 0, stream>>>(
+      topnodes, org, dir, tnear, tfar, num_rays, occ_out, stats,
+      node_touched);
+}
+
+template <int MODE, int DEPTH>
+void launch_depth(bool stats, const float4* topnodes, const float* tiles,
+                  const int* tile_of_leaf, int comp_level, int tile_words,
+                  const float* org, const float* dir, const float* tnear,
+                  const float* tfar, long long num_rays, float* t_out,
+                  float* u_out, float* v_out, int* tile_out,
+                  unsigned long long* next_ray, unsigned long long* st,
+                  int* node_touched, int* tile_touched, cudaStream_t s) {
+#define CBVH_LAUNCH(S)                                                   \
+  launch<MODE, S, DEPTH>(topnodes, tiles, tile_of_leaf, comp_level,      \
+                         tile_words, org, dir, tnear, tfar, num_rays,    \
+                         t_out, u_out, v_out, tile_out, next_ray, st,    \
+                         node_touched, tile_touched, s)
+  if (stats)
+    CBVH_LAUNCH(true);
+  else
+    CBVH_LAUNCH(false);
+#undef CBVH_LAUNCH
 }
 
 }  // namespace
 
 // Launches the closest-hit kernel on `stream` and returns
 // cudaGetLastError() (0 = launched). Does not synchronise and allocates
-// nothing. `mode` is 0 (box), 1 (leaf) or 2 (grid); `tgrid` may be null
-// outside grid mode; `comp_level` is 1..4. `stats`, `node_touched` and
-// `tile_touched` are all null (the main path) or all device buffers (the
-// counting build).
-extern "C" int cbvh_launch(const float* topnodes, const float* theader,
-                           const int* tnodes, const int* tleaf,
-                           const float* tgrid, const int* tile_of_leaf,
-                           int mode, int comp_level, const float* org,
-                           const float* dir, const float* tnear,
-                           const float* tfar, long long num_rays,
-                           float* t_out, float* u_out, float* v_out,
-                           int* tile_out, unsigned long long* stats,
-                           int* node_touched, int* tile_touched,
-                           void* stream) {
+// nothing. `topnodes` is (M, 32) floats, `tiles` (T, tile_words) floats,
+// both 16-byte aligned (as torch allocates); `mode` is 0 (box), 1 (leaf)
+// or 2 (grid), `comp_level` 1..4, `top_depth` the levels of the top level
+// (at most 64).
+// `next_ray` is one zeroed device word, the launch's ray counter.
+// `stats`, `node_touched` and `tile_touched` are all null (the main path)
+// or all device buffers (the counting build).
+extern "C" int cbvh_launch(const float* topnodes, const float* tiles,
+                           const int* tile_of_leaf, int mode, int comp_level,
+                           int tile_words, int top_depth,
+                           const float* org, const float* dir,
+                           const float* tnear, const float* tfar,
+                           long long num_rays, float* t_out, float* u_out,
+                           float* v_out, int* tile_out,
+                           unsigned long long* next_ray,
+                           unsigned long long* stats, int* node_touched,
+                           int* tile_touched, void* stream) {
   if (mode < MODE_BOX || mode > MODE_GRID || comp_level < 1 ||
-      comp_level > MAX_LEVEL || (mode == MODE_GRID && tgrid == nullptr))
+      comp_level > MAX_LEVEL || top_depth < 1 || top_depth > MAX_DEPTH ||
+      tile_words % 4 != 0 || tile_words < HDR_VEC * 4 || next_ray == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_rays <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int variant = 2 * mode + (stats != nullptr ? 1 : 0);
-#define CBVH_CASE(V, M, S)                                                   \
-  case V:                                                                    \
-    launch<M, S>(topnodes, theader, tnodes, tleaf, tgrid, tile_of_leaf,      \
-                 comp_level, org, dir, tnear, tfar, num_rays, t_out, u_out,  \
-                 v_out, tile_out, stats, node_touched, tile_touched, s);     \
+  const float4* top4 = reinterpret_cast<const float4*>(topnodes);
+  const bool st = stats != nullptr;
+#define CBVH_CASE(M)                                                          \
+  case M:                                                                     \
+    if (top_depth <= SHALLOW)                                                 \
+      launch_depth<M, SHALLOW>(st, top4, tiles, tile_of_leaf, comp_level,     \
+                               tile_words, org, dir, tnear, tfar, num_rays,   \
+                               t_out, u_out, v_out, tile_out, next_ray,       \
+                               stats, node_touched, tile_touched, s);         \
+    else                                                                      \
+      launch_depth<M, MAX_DEPTH>(st, top4, tiles, tile_of_leaf,               \
+                                 comp_level, tile_words, org, dir, tnear,     \
+                                 tfar, num_rays, t_out, u_out, v_out,         \
+                                 tile_out, next_ray, stats, node_touched,     \
+                                 tile_touched, s);                            \
     break;
-  switch (variant) {
-    CBVH_CASE(0, MODE_BOX, false)
-    CBVH_CASE(1, MODE_BOX, true)
-    CBVH_CASE(2, MODE_LEAF, false)
-    CBVH_CASE(3, MODE_LEAF, true)
-    CBVH_CASE(4, MODE_GRID, false)
-    CBVH_CASE(5, MODE_GRID, true)
+  switch (mode) {
+    CBVH_CASE(MODE_BOX)
+    CBVH_CASE(MODE_LEAF)
+    CBVH_CASE(MODE_GRID)
   }
 #undef CBVH_CASE
   return static_cast<int>(cudaGetLastError());
@@ -812,30 +956,37 @@ extern "C" int cbvh_launch(const float* topnodes, const float* theader,
 // Launches the occlusion kernel; the same contract. `occ_out` is one byte
 // a ray (0 or 1, the storage of a bool tensor). `stats` and `node_touched`
 // are both null or both device buffers.
-extern "C" int cbvh_occluded_launch(const float* topnodes, const float* org,
-                                    const float* dir, const float* tnear,
-                                    const float* tfar, long long num_rays,
+extern "C" int cbvh_occluded_launch(const float* topnodes, int top_depth,
+                                    const float* org, const float* dir,
+                                    const float* tnear, const float* tfar,
+                                    long long num_rays,
                                     unsigned char* occ_out,
                                     unsigned long long* stats,
                                     int* node_touched, void* stream) {
+  if (top_depth < 1 || top_depth > MAX_DEPTH)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_rays <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid =
-      static_cast<unsigned>((num_rays + THREADS - 1) / THREADS);
-  if (stats != nullptr)
-    cbvh_occluded_kernel<true><<<grid, THREADS, 0, s>>>(
-        topnodes, org, dir, tnear, tfar, num_rays, occ_out, stats,
-        node_touched);
-  else
-    cbvh_occluded_kernel<false><<<grid, THREADS, 0, s>>>(
-        topnodes, org, dir, tnear, tfar, num_rays, occ_out, stats,
-        node_touched);
+  const float4* top4 = reinterpret_cast<const float4*>(topnodes);
+  const bool shallow = top_depth <= SHALLOW;
+  if (stats != nullptr) {
+    if (shallow)
+      launch_occluded<true, SHALLOW>(top4, org, dir, tnear, tfar, num_rays,
+                                     occ_out, stats, node_touched, s);
+    else
+      launch_occluded<true, MAX_DEPTH>(top4, org, dir, tnear, tfar, num_rays,
+                                       occ_out, stats, node_touched, s);
+  } else {
+    if (shallow)
+      launch_occluded<false, SHALLOW>(top4, org, dir, tnear, tfar, num_rays,
+                                      occ_out, stats, node_touched, s);
+    else
+      launch_occluded<false, MAX_DEPTH>(top4, org, dir, tnear, tfar,
+                                        num_rays, occ_out, stats,
+                                        node_touched, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
-
-// The deepest top level (levels of nodes, the root being level 1) that
-// the compiled stack serves without dropping a push.
-extern "C" int cbvh_max_depth(void) { return MAX_DEPTH; }
 
 extern "C" const char* cbvh_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -19,9 +19,10 @@ device:
     (its hits report patch uv); under
     `subdiv_accel=bvh4.compressed.{box,leaf,grid,full}` all subdivision
     meshes go into one compressed accel instead (scene/subdiv_accel.py:
-    one quantized quadtree per tile under a BVH4), packed for the
-    compressed kernels (traverse/cbvh_kernel.py) unless the mode is
-    `full` or `compressed_node` is not `com`;
+    one quantized quadtree per tile under a BVH4), packed into the
+    compressed kernels' compact form (traverse/cbvh_kernel.py) unless the
+    mode is `full` or `compressed_node` is not `com`; the committed scene
+    then keeps of the accel itself only the ids and uv tables;
   * `TriangleMeshMB`, `QuadMeshMB` and `SubdivMeshMB` (N >= 2 vertex
     timesteps) go into one motion-blur accel (`_build_mb`: a common knot
     grid, one SAH topology refit at every knot, a temporal-split
@@ -95,12 +96,11 @@ from ..core.device import Device, Error, RaytracerError
 from ..core.profile import global_profiler, profile_phase, trace
 from ..core.rayhit import Hits, Rays, miss_hits
 from ..subdiv.tessellate import tessellate_mesh_to_triangles
-from ..traverse.cbvh import (CompressedAccel, compressed_hits,
+from ..traverse.cbvh import (CompressedAccel, compressed_hits, ids_only,
                              intersect_compressed, occluded_compressed)
-from ..traverse.cbvh_kernel import (PackedCompressed,
+from ..traverse.cbvh_kernel import (CompactCompressed,
                                     intersect_compressed_kernel,
-                                    occluded_compressed_kernel,
-                                    pack_compressed)
+                                    occluded_compressed_kernel, pack_compact)
 from ..traverse.hair_kernel import (PackedHair, PackedHairSet,
                                     intersect_hair_set, occluded_hair_set,
                                     pack_hair_cluster, pack_hair_set)
@@ -214,8 +214,10 @@ class CommittedScene(NamedTuple):
     # (T, 3, 2) f32 patch-uv corners per triangle when the soup holds an
     # eagerly tessellated SubdivMesh, else None
     tri_patch_uv: Optional[torch.Tensor] = None
-    compressed: Optional[CompressedAccel] = None   # fork's subdiv modes
-    compressed_kernel: Optional[PackedCompressed] = None  # its packed form
+    # the fork's subdiv modes; of a packed accel only its ids and uv
+    # tables (traverse/cbvh.py::ids_only)
+    compressed: Optional[CompressedAccel] = None
+    compressed_kernel: Optional[CompactCompressed] = None  # its compact form
     mb: Optional[MBAccel] = None              # motion-blur accel
     mb_kernel: Optional[PackedMB] = None      # its packed form
     hairs: tuple = ()                         # HairEntry a cluster
@@ -447,7 +449,11 @@ class Scene:
             # non / mid flavors and mode 'full' traverse in torch ops
             if flavor == "com":
                 with profile_phase("scene.pack_compressed"):
-                    compressed_kernel = pack_compressed(compressed)
+                    compressed_kernel = pack_compact(compressed)
+            if compressed_kernel is not None:
+                # after packing only the hits' ids and the uv remap are
+                # read of the accel itself
+                compressed = ids_only(compressed)
             if nprims:
                 lo_all = np.minimum(lo_all, clo)
                 hi_all = np.maximum(hi_all, chi)
@@ -886,12 +892,15 @@ def _scene_bytes(cs: CommittedScene) -> int:
     if cs.tri_patch_uv is not None:
         n += cs.tri_patch_uv.numel() * 4
     if cs.compressed is not None:
+        # the compact form shares the accel's uv tables: count each once
         ct = cs.compressed.tiles
-        n += sum(a.numel() * a.element_size()
-                 for a in list(cs.compressed.top)
-                 + [getattr(ct, k) for k in ct.ARRAYS])
-    if cs.compressed_kernel is not None:
-        n += cs.compressed_kernel.device_bytes
+        parts = [getattr(ct, k) for k in ct.ARRAYS]
+        if cs.compressed.top is not None:
+            parts += list(cs.compressed.top)
+        if cs.compressed_kernel is not None:
+            parts += list(cs.compressed_kernel[:5])
+        n += sum({a.data_ptr(): a.numel() * a.element_size()
+                  for a in parts if a is not None}.values())
     if cs.mb is not None:
         n += sum(a.numel() * a.element_size()
                  for a in list(cs.mb.bvh) + list(cs.mb[1:])

@@ -79,6 +79,20 @@ class CompressedAccel(NamedTuple):
     tiles: CompressedTiles
 
 
+# what a committed scene keeps of an accel whose kernels read its compact
+# form (traverse/cbvh_kernel.py): the hits' ids and the uv remap
+KEPT_WHEN_PACKED = ("uv0", "uvd", "geom_id", "prim_id")
+
+
+def ids_only(accel: CompressedAccel) -> CompressedAccel:
+    """The accel without the tiles' walk data and the top level: the
+    arrays of KEPT_WHEN_PACKED and the scalars, every other array None.
+    No walk over it is possible; the kernels' compact form answers."""
+    t = accel.tiles
+    return CompressedAccel(top=None, tiles=t._replace(
+        **{k: None for k in t.ARRAYS if k not in KEPT_WHEN_PACKED}))
+
+
 class _CHit(NamedTuple):
     """Per-ray compressed-hit state."""
 
@@ -189,6 +203,9 @@ class UnpackedSource:
 
     def __init__(self, accel: CompressedAccel):
         top, tiles = accel.top, accel.tiles
+        if top is None:
+            raise ValueError("the accel keeps only its ids (ids_only): walk "
+                             "its compact form (traverse/cbvh_kernel.py)")
         if top.width != 4:
             raise ValueError("the compressed accel's top level is a BVH4")
         if not 1 <= tiles.comp_level <= MAX_COMP_LEVEL:

@@ -1,5 +1,5 @@
-"""Compressed-patch (cBVH) traversal over the packed accel: the two
-kernels' wrappers, their plain versions and the packer.
+"""Compressed-patch (cBVH) traversal: the two kernels' wrappers, their
+plain versions, the packer and the compact device form.
 
 Counterpart of embree_tpu/traverse/pallas_cbvh.py. `pack_compressed`
 lays the compressed accel out exactly as the JAX package does
@@ -18,19 +18,31 @@ lays the compressed accel out exactly as the JAX package does
                           mode; here it is empty outside 'grid' mode)
   tile_of_leaf (T,) i32   top-level leaf slot -> tile
 
+`pack_compact` cuts those rows to what the kernels read, every word the
+one it came from (`CompactCompressed`, the form a committed scene holds
+on the device):
+
+  topnodes (M, 32) f32    the 32 used floats of a node row: 128 bytes
+  tiles    (T, W) f32     one record a tile: the 44 header floats, the
+                          node words from float 44, then the leaf words
+                          or the grid floats, each section starting on a
+                          float4 (`tile_layout`); 400 bytes in 'leaf' mode
+                          at level 3, where the three rows take 1,536
+  tile_of_leaf (T,) i32
+
 `intersect_compressed_kernel` (closest hit) and
 `occluded_compressed_kernel` (conservative occlusion: a ray is occluded
 when it reaches any tile's top-level leaf box) are the entries. On CUDA
 tensors they launch the hand-written kernels of `csrc/cbvh.cu` (built
-and loaded at first use by core/nvcc.py) or raise; on CPU tensors they
-run `cbvh_plain` / `cbvh_occluded_plain`, the same per-ray walk in
-masked tensor ops (traverse/cbvh.py::walk_closest / walk_occluded over
-the packed rows). What a ray computes, and in which order, is set out in
-traverse/cbvh.py; the kernel (built with `-fmad=false`) and the plain
-version agree bit for bit, counters included. Against the JAX package's
-kernel, which orders visits by the nearest ray of a 1,024-ray packet,
-`t` and the valid mask are the contract and `tile` may differ where two
-tiles give the same t.
+and loaded at first use by core/nvcc.py) over the compact form or raise;
+on CPU tensors they run `cbvh_plain` / `cbvh_occluded_plain`, the same
+per-ray walk in masked tensor ops (traverse/cbvh.py::walk_closest /
+walk_occluded) over either form (`CompactSource`, `PackedSource`). What a
+ray computes, and in which order, is set out in traverse/cbvh.py; the
+kernel (built with `-fmad=false`) and the plain version agree bit for
+bit, counters included. Against the JAX package's kernel, which orders
+visits by the nearest ray of a 1,024-ray packet, `t` and the valid mask
+are the contract and `tile` may differ where two tiles give the same t.
 
 Not carried over from the JAX package, because they belong to its
 schedule and not to the function: the shared stacks of a packet, the
@@ -55,6 +67,8 @@ KERNEL_NAME = "cbvh"            # csrc/cbvh.cu -> _build/libcbvh.so
 MAX_DEPTH = 64                  # top-level levels the compiled stack serves
 MODES = ("box", "leaf", "grid")
 GRID_ROWS = 8
+HEADER_WORDS = 44               # floats of a tile header
+TOP_WORDS = 32                  # used floats of a top-level node row
 
 # number of kernel launches made by this module, by kernel (plain-version
 # calls do not count); a caller that wants to know whether a path went
@@ -213,31 +227,155 @@ class PackedSource:
         return torch.stack([flat[base], flat[base + 1], flat[base + 2]], 1)
 
 
+class CompactCompressed(NamedTuple):
+    """The compact device form of a compressed accel (`pack_compact`),
+    what the kernels read."""
+
+    topnodes: torch.Tensor      # (M, TOP_WORDS) f32
+    tiles: torch.Tensor         # (T, tile_words) f32, ints as bit patterns
+    tile_of_leaf: torch.Tensor  # (T,) i32
+    uv0: torch.Tensor           # (T, 2) f32
+    uvd: torch.Tensor           # (T, 2) f32
+    comp_level: int
+    mode: str
+    top_depth: int              # levels of top-level nodes, the root being 1
+
+    @property
+    def num_nodes(self) -> int:
+        return self.topnodes.shape[0]
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+    @property
+    def device_bytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self[:5])
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def tile_layout(comp_level: int, mode: str):
+    """(floats of a compact tile record, offset of its node words, offset
+    of its leaf words or grid floats); every section starts on a float4."""
+    g = 1 << comp_level
+    elems = (4 ** comp_level - 1) // 3
+    leaf_ofs = HEADER_WORDS + _pad4(elems)
+    payload = {"box": 0, "leaf": g * g // 2, "grid": 3 * (g + 1) ** 2}[mode]
+    return leaf_ofs + _pad4(payload), HEADER_WORDS, leaf_ofs
+
+
+def compact_rows(rows: dict, comp_level: int, mode: str) -> dict:
+    """`pack_rows`' arrays (host numpy) cut to the compact form: node rows
+    to their 32 used floats, a tile's header, node words and leaf words or
+    grid floats into one record (`tile_layout`). Every word is the one it
+    came from, bit for bit; the pads are zero."""
+    g = 1 << comp_level
+    elems = (4 ** comp_level - 1) // 3
+    T = rows["theader"].shape[0]
+    words, node_ofs, leaf_ofs = tile_layout(comp_level, mode)
+    rec = np.zeros((T, words), np.int32)
+    rec[:, :HEADER_WORDS] = rows["theader"].view(np.int32)[:, :HEADER_WORDS]
+    rec[:, node_ofs:node_ofs + elems] = rows["tnodes"][:, :elems]
+    if mode == "leaf":
+        rec[:, leaf_ofs:leaf_ofs + g * g // 2] = rows["tleaf"][:, :g * g // 2]
+    elif mode == "grid":
+        n = 3 * (g + 1) ** 2
+        rec[:, leaf_ofs:leaf_ofs + n] = (
+            rows["tgrid"].reshape(T, -1).view(np.int32)[:, :n])
+    return {"topnodes": np.ascontiguousarray(
+                rows["topnodes"][:, :TOP_WORDS]),
+            "tiles": rec.view(np.float32),
+            "tile_of_leaf": rows["tile_of_leaf"]}
+
+
+def pack_compact(accel: CompressedAccel) -> Optional[CompactCompressed]:
+    """`pack_rows`' arrays of the accel cut to the compact form
+    (`compact_rows`) and uploaded to the accel's device: the form a scene
+    commits; None for what the kernels do not serve."""
+    tiles = accel.tiles
+    arrs = accel_arrays(accel)
+    rows = pack_rows(arrs, tiles.comp_level, tiles.mode)
+    if rows is None:
+        return None
+    dev = tiles.space.device
+    return CompactCompressed(
+        **{k: torch.from_numpy(v).to(dev)
+           for k, v in compact_rows(rows, tiles.comp_level,
+                                    tiles.mode).items()},
+        uv0=tiles.uv0, uvd=tiles.uvd, comp_level=tiles.comp_level,
+        mode=tiles.mode,
+        top_depth=tree_depth(arrs["top.child"], arrs["top.count"]))
+
+
+class CompactSource:
+    """Tile source of traverse/cbvh.py::walk_closest over the compact form:
+    what the kernel reads, word for word."""
+
+    def __init__(self, cc: CompactCompressed):
+        self.cc = cc
+        self.mode = cc.mode
+        self.comp_level = cc.comp_level
+        self.tile_of_leaf = cc.tile_of_leaf
+        self.hdr = cc.tiles[:, :HEADER_WORDS]
+        self.top_depth = cc.top_depth
+        self._words = cc.tiles.view(torch.int32)
+        _, self._node_ofs, self._leaf_ofs = tile_layout(cc.comp_level,
+                                                        cc.mode)
+        self._tables = cbvh._tables(cc.topnodes.device)
+
+    def top_node(self, node):
+        f = self.cc.topnodes[node].view(-1, 8, 4)
+        return tuple(f[:, k] for k in range(8))
+
+    def children(self, ti, curr, blo, bhi):
+        w = self._words[ti, self._node_ofs + curr]
+        return cbvh.decode_com(w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF,
+                               (w >> 24) & 0xFF, blo, bhi, self._tables)
+
+    def leaf_z(self, ti, idx):
+        w = self._words[ti, self._leaf_ofs + (idx >> 1)]
+        cw = torch.where((idx & 1) == 0, w & 0xFFFF, (w >> 16) & 0xFFFF)
+        return cw & 0xFF, (cw >> 8) & 0xFF
+
+    def grid_vertex(self, ti, ii, jj):
+        g1 = (1 << self.comp_level) + 1
+        col = self._leaf_ofs + 3 * (ii * g1 + jj)
+        t = self.cc.tiles
+        return torch.stack([t[ti, col], t[ti, col + 1], t[ti, col + 2]], 1)
+
+
+def _source(pc):
+    return CompactSource(pc) if isinstance(pc, CompactCompressed) \
+        else PackedSource(pc)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 def _load_kernel():
     lib = load_library(KERNEL_NAME)
-    p = ctypes.c_void_p
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.cbvh_launch.restype = ctypes.c_int
     lib.cbvh_launch.argtypes = [
-        p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,   # accel, mode, level
+        p, p, p, i, i, i, i,                            # accel, layout
         p, p, p, p, ctypes.c_longlong,                  # rays
-        p, p, p, p,                                     # t, u, v, tile
+        p, p, p, p, p,                                  # t u v tile, counter
         p, p, p, p]                                     # stats, stream
     lib.cbvh_occluded_launch.restype = ctypes.c_int
     lib.cbvh_occluded_launch.argtypes = [
-        p, p, p, p, p, ctypes.c_longlong, p, p, p, p]
-    lib.cbvh_max_depth.restype = ctypes.c_int
-    lib.cbvh_max_depth.argtypes = []
+        p, i, p, p, p, p, ctypes.c_longlong, p, p, p, p]
     lib.cbvh_error_string.restype = ctypes.c_char_p
     lib.cbvh_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def _checked_inputs(pc: PackedCompressed, rays: Rays, t_in=None):
-    """Flat ray tensors after the checks both versions share."""
+def _checked_inputs(pc, rays: Rays, t_in=None):
+    """Flat ray tensors after the checks both versions share; `pc` is a
+    CompactCompressed or, for the plain versions, a PackedCompressed."""
     dev = pc.topnodes.device
     f32, i32 = torch.float32, torch.int32
     if pc.mode not in MODES:
@@ -249,12 +387,20 @@ def _checked_inputs(pc: PackedCompressed, rays: Rays, t_in=None):
         raise ValueError(f"top level of {pc.top_depth} levels: the kernel's "
                          f"stack serves at most {MAX_DEPTH}")
     M, T = pc.num_nodes, pc.num_tiles
-    check_tensor("topnodes", pc.topnodes, dev, f32, (M, 128))
-    check_tensor("theader", pc.theader, dev, f32, (T, 128))
-    check_tensor("tnodes", pc.tnodes, dev, i32, (T, 128))
-    check_tensor("tleaf", pc.tleaf, dev, i32, (T, 128))
-    check_tensor("tgrid", pc.tgrid, dev, f32,
-                 (T if pc.mode == "grid" else 0, GRID_ROWS, 128))
+    if isinstance(pc, CompactCompressed):
+        words = tile_layout(pc.comp_level, pc.mode)[0]
+        # a record's sections, named after the rows they come from
+        sections = {"box": "theader|tnodes", "leaf": "theader|tnodes|tleaf",
+                    "grid": "theader|tnodes|tgrid"}[pc.mode]
+        check_tensor("topnodes", pc.topnodes, dev, f32, (M, TOP_WORDS))
+        check_tensor(f"tiles ({sections})", pc.tiles, dev, f32, (T, words))
+    else:
+        check_tensor("topnodes", pc.topnodes, dev, f32, (M, 128))
+        check_tensor("theader", pc.theader, dev, f32, (T, 128))
+        check_tensor("tnodes", pc.tnodes, dev, i32, (T, 128))
+        check_tensor("tleaf", pc.tleaf, dev, i32, (T, 128))
+        check_tensor("tgrid", pc.tgrid, dev, f32,
+                     (T if pc.mode == "grid" else 0, GRID_ROWS, 128))
     check_tensor("tile_of_leaf", pc.tile_of_leaf, dev, i32, (T,))
     R = rays.tnear.numel()
     org = rays.org.reshape(-1, 3)
@@ -265,6 +411,9 @@ def _checked_inputs(pc: PackedCompressed, rays: Rays, t_in=None):
     check_tensor("rays.dir", d, dev, f32, (R, 3))
     check_tensor("rays.tnear", tn, dev, f32, (R,))
     check_tensor("rays.tfar", tf, dev, f32, (R,))
+    if tn.device.type != "cpu" and not isinstance(pc, CompactCompressed):
+        raise ValueError("the CUDA kernels read the compact form: "
+                         "pack_compact(accel)")
     return org, d, tn, tf
 
 
@@ -293,37 +442,34 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"cbvh {what} kernel launch failed: {err} ({msg})")
 
 
-def cbvh_trace(pc: PackedCompressed, rays: Rays, t_in=None,
-               stats: bool = False):
+def cbvh_trace(pc, rays: Rays, t_in=None, stats: bool = False):
     """One closest-hit traversal: (t, tile-local u, tile-local v, tile,
     counters or None), flat over rays. `t` is the ray's tfar (or `t_in`)
     and `tile` -1 where no tile was hit. With `stats` the counters of
     this call come back as a dict; on CUDA that launches the kernel's
-    counting build, which is slower (atomics) and is not the main path."""
+    counting build, which is slower (atomics) and is not the main path.
+    `pc` is a CompactCompressed (a PackedCompressed too on the CPU)."""
     org, d, tn, tf = _checked_inputs(pc, rays, t_in)
     R = tn.shape[0]
     if tn.device.type == "cpu":
         out = cbvh_plain(pc, Rays(org, d, tn, tf), stats=stats)
         return out if stats else out + (None,)
     lib = _load_kernel()
-    if pc.top_depth > lib.cbvh_max_depth():
-        raise ValueError(f"top level of {pc.top_depth} levels exceeds the "
-                         f"compiled stack ({lib.cbvh_max_depth()} levels)")
     dev = tn.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
     u = torch.empty(R, dtype=torch.float32, device=dev)
     v = torch.empty(R, dtype=torch.float32, device=dev)
     tile = torch.empty(R, dtype=torch.int32, device=dev)
+    next_ray = torch.zeros(1, dtype=torch.int64, device=dev)
     buf = _stat_buffers(pc, dev) if stats else (None, None, None)
     with torch.cuda.device(dev):
         err = lib.cbvh_launch(
-            pc.topnodes.data_ptr(), pc.theader.data_ptr(),
-            pc.tnodes.data_ptr(), pc.tleaf.data_ptr(),
-            pc.tgrid.data_ptr() if pc.mode == "grid" else None,
+            pc.topnodes.data_ptr(), pc.tiles.data_ptr(),
             pc.tile_of_leaf.data_ptr(), MODES.index(pc.mode), pc.comp_level,
+            pc.tiles.shape[1], pc.top_depth,
             org.data_ptr(), d.data_ptr(), tn.data_ptr(), tf.data_ptr(), R,
             t.data_ptr(), u.data_ptr(), v.data_ptr(), tile.data_ptr(),
-            _ptr(buf[0]), _ptr(buf[1]), _ptr(buf[2]),
+            next_ray.data_ptr(), _ptr(buf[0]), _ptr(buf[1]), _ptr(buf[2]),
             torch.cuda.current_stream().cuda_stream)
     launches["closest"] += 1
     _raise_on(lib, err, "closest-hit")
@@ -334,8 +480,7 @@ def cbvh_trace(pc: PackedCompressed, rays: Rays, t_in=None,
                                       buf[2].sum().item())
 
 
-def cbvh_occluded_trace(pc: PackedCompressed, rays: Rays,
-                        stats: bool = False):
+def cbvh_occluded_trace(pc, rays: Rays, stats: bool = False):
     """One occlusion traversal: (occluded bool (R,), counters or None)."""
     org, d, tn, tf = _checked_inputs(pc, rays)
     R = tn.shape[0]
@@ -343,16 +488,13 @@ def cbvh_occluded_trace(pc: PackedCompressed, rays: Rays,
         out = cbvh_occluded_plain(pc, Rays(org, d, tn, tf), stats=stats)
         return out if stats else (out, None)
     lib = _load_kernel()
-    if pc.top_depth > lib.cbvh_max_depth():
-        raise ValueError(f"top level of {pc.top_depth} levels exceeds the "
-                         f"compiled stack ({lib.cbvh_max_depth()} levels)")
     dev = tn.device
     occ = torch.empty(R, dtype=torch.bool, device=dev)
     buf = _stat_buffers(pc, dev) if stats else (None, None, None)
     with torch.cuda.device(dev):
         err = lib.cbvh_occluded_launch(
-            pc.topnodes.data_ptr(), org.data_ptr(), d.data_ptr(),
-            tn.data_ptr(), tf.data_ptr(), R, occ.data_ptr(),
+            pc.topnodes.data_ptr(), pc.top_depth, org.data_ptr(),
+            d.data_ptr(), tn.data_ptr(), tf.data_ptr(), R, occ.data_ptr(),
             _ptr(buf[0]), _ptr(buf[1]),
             torch.cuda.current_stream().cuda_stream)
     launches["occluded"] += 1
@@ -362,8 +504,7 @@ def cbvh_occluded_trace(pc: PackedCompressed, rays: Rays,
     return occ, _stats_dict(R, *buf[0].tolist(), buf[1].sum().item(), 0)
 
 
-def intersect_compressed_kernel(pc: PackedCompressed, rays: Rays,
-                                t_in=None) -> _CHit:
+def intersect_compressed_kernel(pc, rays: Rays, t_in=None) -> _CHit:
     """Closest hit over the packed accel, flat over rays, uv remapped to
     patch space. `t_in` seeds the per-ray tfar."""
     t, u, v, tile, _ = cbvh_trace(pc, rays, t_in)
@@ -371,7 +512,7 @@ def intersect_compressed_kernel(pc: PackedCompressed, rays: Rays,
     return _CHit(t=t, u=u, v=v, tile=tile)
 
 
-def occluded_compressed_kernel(pc: PackedCompressed, rays: Rays):
+def occluded_compressed_kernel(pc, rays: Rays):
     """Conservative occlusion: bool tensor of the rays' batch shape."""
     occ, _ = cbvh_occluded_trace(pc, rays)
     return occ.reshape(rays.batch_shape)
@@ -388,7 +529,7 @@ def _finish_stats(R, cnt):
                        cnt["tile_touched"].sum().item())
 
 
-def cbvh_plain(pc: PackedCompressed, rays: Rays, stats: bool = False):
+def cbvh_plain(pc, rays: Rays, stats: bool = False):
     """The closest-hit kernel's function in plain PyTorch ops, float32, on
     whatever device the tensors lie: (t, tile-local u, tile-local v,
     tile), and the counters dict as a fifth value with `stats`."""
@@ -396,17 +537,16 @@ def cbvh_plain(pc: PackedCompressed, rays: Rays, stats: bool = False):
     dev = tn.device
     cnt = (cbvh.new_counters(pc.num_nodes, pc.num_tiles, dev) if stats
            else cbvh.new_counters())
-    out = cbvh.walk_closest(PackedSource(pc), org, d, tn, tf, cnt)
+    out = cbvh.walk_closest(_source(pc), org, d, tn, tf, cnt)
     return out + (_finish_stats(tn.shape[0], cnt),) if stats else out
 
 
-def cbvh_occluded_plain(pc: PackedCompressed, rays: Rays,
-                        stats: bool = False):
+def cbvh_occluded_plain(pc, rays: Rays, stats: bool = False):
     """The occlusion kernel's function in plain PyTorch ops: bool (R,),
     and the counters dict as a second value with `stats`."""
     org, d, tn, tf = _checked_inputs(pc, rays)
     dev = tn.device
     cnt = (cbvh.new_counters(pc.num_nodes, pc.num_tiles, dev) if stats
            else cbvh.new_counters())
-    occ = cbvh.walk_occluded(PackedSource(pc), org, d, tn, tf, cnt)
+    occ = cbvh.walk_occluded(_source(pc), org, d, tn, tf, cnt)
     return (occ, _finish_stats(tn.shape[0], cnt)) if stats else occ

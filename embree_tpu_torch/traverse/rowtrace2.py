@@ -8,8 +8,10 @@ returns, per ray, the closest hit `(t, prim)` over a `TreeletScene`
 On a CUDA tensor the wrapper launches the hand-written kernel
 `csrc/rowtrace2.cu` (built and loaded at first use by core/nvcc.py) or
 raises; on a CPU tensor it runs `rowtrace2_plain`, the
-same per-ray state machine written with masked tensor ops. Both visit,
-for every ray:
+same per-ray state machine written with masked tensor ops. Both read
+the compact form of the treelet scene (build/treelets.py::
+compact_treelets: 48-byte node records, 80-byte leaf-pair records,
+32-byte fan and mid boxes) and visit, for every ray:
 
   * mids in ascending id, each box slab-tested against the ray's live t;
   * the fan treelets of an entered mid in ascending id, their boxes
@@ -22,13 +24,16 @@ for every ray:
 That order depends on the ray alone, so the result does not depend on
 how rays are grouped, and the two versions agree bit for bit as long as
 the kernel is built without FMA contraction (`-fmad=false`): every
-product is rounded before it is added, here as there.
+product is rounded before it is added, here as there. Slab tests keep a
+NaN as `torch.minimum` / `maximum` do, so the two also count the same
+visits on NaN lanes.
 
 Of the kernel's two roofline terms, counted float32 operations are the
 larger at the 1M-triangle scene (the scan over all mid boxes dominates
-them); it runs far from either, waiting on the latency of 4-byte loads
-that the 128-lane block layout inherited from the JAX package scatters
-512 bytes apart. PERF.md has the measured times and the bound.
+them). The kernel keeps the threads of a warp busy together: each moves
+through its own candidate mids, the warp tests an entering ray's fan
+boxes a lane a box, and walks of different mids run side by side.
+PERF.md has the measured times and the bound.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..build.treelets import (BLOCK_ROWS, LEAF_FIELDS, N_INNER, NODE_ROWS,
-                              TreeletScene)
+from ..build.treelets import (BOX_WORDS, LEAF_FIELDS, N_INNER, N_PAIRS,
+                              NODE_ROWS, TreeletScene)
 from ..core.math import (ROBUST_MAX_RCP as ROBUST_MAX,
                          ROBUST_MIN_RCP as ROBUST_MIN, rcp_safe)
 from ..core.nvcc import check_tensor, load_library
@@ -62,7 +67,7 @@ def _load_kernel():
     p = ctypes.c_void_p
     lib.rowtrace2_launch.restype = ctypes.c_int
     lib.rowtrace2_launch.argtypes = [
-        p, p, p, ctypes.c_int, ctypes.c_int,      # scene
+        p, p, p, p, ctypes.c_int, ctypes.c_int,   # scene
         p, p, p, p, ctypes.c_longlong,            # rays
         p, p, ctypes.c_int, ctypes.c_int,         # out, variant
         p, p, p]                                  # stats, stream
@@ -73,14 +78,16 @@ def _load_kernel():
 
 def _checked_inputs(ts: TreeletScene, rays: Rays):
     """Flat ray tensors after the checks both versions share."""
-    device = ts.blocks.device
+    device = ts.nodes.device
     M, fan = ts.num_mids, ts.fan
     if not 1 <= fan <= MAX_FAN:
         raise ValueError(f"fan {fan} outside 1..{MAX_FAN}")
     f32 = torch.float32
-    check_tensor("blocks", ts.blocks, device, f32, (M * fan, BLOCK_ROWS, 128))
-    check_tensor("mid_boxes", ts.mid_boxes, device, f32, (M, 6))
-    check_tensor("tre_boxes", ts.tre_boxes, device, f32, (M, 6, 128))
+    N = M * fan
+    check_tensor("nodes", ts.nodes, device, f32, (N, N_INNER, NODE_ROWS))
+    check_tensor("pairs", ts.pairs, device, f32, (N, N_PAIRS, LEAF_FIELDS))
+    check_tensor("fan_boxes", ts.fan_boxes, device, f32, (N, BOX_WORDS))
+    check_tensor("mid_boxes", ts.mid_boxes, device, f32, (M, BOX_WORDS))
     R = rays.tnear.numel()
     org = rays.org.reshape(-1, 3)
     d = rays.dir.reshape(-1, 3)
@@ -106,13 +113,13 @@ def _launch(ts: TreeletScene, org, d, tn, tf, occluded: bool, cull: bool,
     with torch.cuda.device(tn.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rowtrace2_launch(
-            ts.blocks.data_ptr(), ts.tre_boxes.data_ptr(),
-            ts.mid_boxes.data_ptr(), ts.fan, ts.num_mids,
+            ts.nodes.data_ptr(), ts.pairs.data_ptr(),
+            ts.fan_boxes.data_ptr(), ts.mid_boxes.data_ptr(), ts.fan,
+            ts.num_mids,
             org.data_ptr(), d.data_ptr(), tn.data_ptr(), tf.data_ptr(), R,
             t.data_ptr(), prim.data_ptr(), int(occluded), int(cull),
             None if counters is None else counters.data_ptr(),
-            None if touched is None else touched.data_ptr(),
-            stream)
+            None if touched is None else touched.data_ptr(), stream)
     launches += 1
     if err != 0:
         msg = lib.rowtrace2_error_string(err).decode()
@@ -130,13 +137,20 @@ def intersect_rowtrace2(ts: TreeletScene, rays: Rays,
     return _launch(ts, org, d, tn, tf, bool(occluded), bool(cull), None)
 
 
+def _stats_dict(R, mids, treelets, nodes, pairs, touched):
+    return {"rays": int(R), "mids_entered": int(mids),
+            "treelets_walked": int(treelets), "node_visits": int(nodes),
+            "pair_tests": int(pairs), "treelets_touched": int(touched)}
+
+
 def rowtrace2_stats(ts: TreeletScene, rays: Rays, occluded: bool = False,
                     cull: bool = False):
     """The kernel's counting build (CUDA only): (t, prim, counters) where
     counters sums over rays the mids entered, treelets walked, node
-    visits and leaf-pair tests, and counts the distinct treelets touched.
-    It is slower than the main build (atomics) and is for the roofline
-    bound, not for the main path."""
+    visits and leaf-pair tests, and counts the distinct treelets touched
+    (`rowtrace2_plain(stats=True)` counts the same). It is slower than
+    the main build (atomics) and is for the roofline bound, not for the
+    main path."""
     org, d, tn, tf = _checked_inputs(ts, rays)
     if tn.device.type != "cuda":
         raise ValueError("rowtrace2_stats needs CUDA tensors")
@@ -145,11 +159,8 @@ def rowtrace2_stats(ts: TreeletScene, rays: Rays, occluded: bool = False,
                           device=tn.device)
     t, prim = _launch(ts, org, d, tn, tf, bool(occluded), bool(cull),
                       (counters, touched))
-    c = counters.tolist()
-    return t, prim, {"rays": int(tn.shape[0]), "mids_entered": c[0],
-                     "treelets_walked": c[1], "node_visits": c[2],
-                     "pair_tests": c[3],
-                     "treelets_touched": int(touched.sum().item())}
+    return t, prim, _stats_dict(tn.shape[0], *counters.tolist(),
+                                touched.sum().item())
 
 
 # ---------------------------------------------------------------------------
@@ -222,15 +233,17 @@ class _RayTerms(NamedTuple):
         return tuple(x[ix] for x in self[6:])
 
 
-def _walk(ts: TreeletScene, tid, ray: _RayTerms, t, prim, occluded, cull):
+def _walk(ts: TreeletScene, tid, ray: _RayTerms, t, prim, occluded, cull,
+          cnt):
     """Walk treelet tid[i] with ray i: node phase against the t at walk
     start, then the marked leaf pairs in ascending id against the live
-    t. Returns the updated (t, prim)."""
+    t. Returns the updated (t, prim); adds node visits and pair tests to
+    `cnt` when it is a dict."""
     k = tid.shape[0]
     dev = tid.device
     # --- node phase: all 85 inner slots x 4 children at once; a child
     # counts only if its parent slot was itself reached
-    packed = ts.blocks[tid, :NODE_ROWS, :N_INNER]          # (k, 12, 85)
+    packed = ts.nodes[tid].transpose(1, 2)                 # (k, 12, 85)
     lo, hi = _unpack_bounds(packed)
     lo = lo.view(k, 3, 4, N_INNER)                         # [axis, child]
     hi = hi.view(k, 3, 4, N_INNER)
@@ -238,27 +251,28 @@ def _walk(ts: TreeletScene, tid, ray: _RayTerms, t, prim, occluded, cull):
                        hi[:, 0], hi[:, 1], hi[:, 2], *ray.slab_args(2))
     hit = (tmin <= tmax) & (tmin <= t[:, None, None])      # (k, 4, 85)
     reached = torch.ones((k, 1), dtype=torch.bool, device=dev)
+    visits = k                                             # the roots
     for s, e in ((0, 1), (1, 5), (5, 21), (21, N_INNER)):
         # children of slot i are slots 4i+1+c; of an L3 slot, pairs
         # 4(i-21)+c: either way slot-major, child-minor
         reached = (reached[:, :, None]
                    & hit[:, :, s:e].permute(0, 2, 1)).reshape(k, 4 * (e - s))
+        if cnt is not None and e < N_INNER:
+            visits += int(reached.sum())
     pm = reached                                           # (k, 256) pairs
 
     # --- leaf phase
-    flat = ts.blocks.view(-1)
-    fofs = torch.arange(LEAF_FIELDS, device=dev) * 128
     t = t.clone()
     prim = prim.clone()
+    pairs = 0
     while True:
         live = pm.any(dim=1).nonzero().squeeze(1)
         if live.numel() == 0:
             break
+        pairs += live.numel()
         p = _first_true(pm[live])
         pm[live, p] = False
-        base = ((tid[live] * BLOCK_ROWS + NODE_ROWS + (p >> 7) * LEAF_FIELDS)
-                * 128 + (p & 127))
-        f = flat[base[:, None] + fofs]                     # (n, 20)
+        f = ts.pairs[tid[live], p]                         # (n, 20)
         pid = f.view(torch.int32)
         r = ray.take(live)
         tl, pl = t[live], prim[live]
@@ -293,10 +307,13 @@ def _walk(ts: TreeletScene, tid, ray: _RayTerms, t, prim, occluded, cull):
         prim[live] = pl
         if occluded:
             pm[live[tl == -math.inf]] = False
+    if cnt is not None:
+        cnt["nodes"] += visits
+        cnt["pairs"] += pairs
     return t, prim
 
 
-def _plain_batch(ts: TreeletScene, org, d, tn, tf, occluded, cull):
+def _plain_batch(ts: TreeletScene, org, d, tn, tf, occluded, cull, cnt):
     n = tn.shape[0]
     dev = tn.device
     fan, M = ts.fan, ts.num_mids
@@ -311,6 +328,7 @@ def _plain_batch(ts: TreeletScene, org, d, tn, tf, occluded, cull):
                                *ray.slab_args(1))
     mid_geo = mid_tmin <= mid_tmax                         # (n, M)
     mid_ids = torch.arange(M, device=dev)
+    fan_boxes = ts.fan_boxes.view(M, fan, BOX_WORDS)
 
     mid = torch.full((n,), -1, dtype=torch.long, device=dev)
     fm = torch.zeros((n, fan), dtype=torch.bool, device=dev)
@@ -329,18 +347,24 @@ def _plain_batch(ts: TreeletScene, org, d, tn, tf, occluded, cull):
             sel = idx[has]
             m = _first_true(live[has])
             mid[sel] = m
-            tb = ts.tre_boxes[m][:, :, :fan]               # (k, 6, fan)
+            fb = fan_boxes[m]                              # (k, fan, 8)
             r = ray.take(sel)
-            tmin, tmax = _slab(*(tb[:, j] for j in range(6)),
+            tmin, tmax = _slab(*(fb[:, :, j] for j in range(6)),
                                *r.slab_args(1))
             fm[sel] = (tmin <= tmax) & (tmin <= t[sel, None])
+            if cnt is not None:
+                cnt["mids"] += sel.numel()
         act = (~done).nonzero().squeeze(1)
         if act.numel() == 0:
             break
         b = _first_true(fm[act])
         fm[act, b] = False
-        t_new, prim_new = _walk(ts, mid[act] * fan + b, ray.take(act),
-                                t[act], prim[act], occluded, cull)
+        tid = mid[act] * fan + b
+        if cnt is not None:
+            cnt["treelets"] += act.numel()
+            cnt["touched"][tid] = True
+        t_new, prim_new = _walk(ts, tid, ray.take(act), t[act], prim[act],
+                                occluded, cull, cnt)
         t[act] = t_new
         prim[act] = prim_new
         if occluded:
@@ -351,21 +375,34 @@ def _plain_batch(ts: TreeletScene, org, d, tn, tf, occluded, cull):
 
 
 def rowtrace2_plain(ts: TreeletScene, rays: Rays, occluded: bool = False,
-                    cull: bool = False):
+                    cull: bool = False, stats: bool = False):
     """The kernel's function in plain PyTorch ops, float32, on whatever
     device the tensors lie: all rays of a batch advance in lock-step
     through the per-ray state machine (next mid -> seed fan mask -> next
     treelet -> node phase -> pair drain). Rays are independent, so they
-    are processed PLAIN_CHUNK at a time to bound memory."""
+    are processed PLAIN_CHUNK at a time to bound memory. With `stats`
+    the kernel's counters (`rowtrace2_stats`) come back as a third
+    value."""
     org, d, tn, tf = _checked_inputs(ts, rays)
+    cnt = None
+    if stats:
+        cnt = {"mids": 0, "treelets": 0, "nodes": 0, "pairs": 0,
+               "touched": torch.zeros(ts.num_treelets, dtype=torch.bool,
+                                      device=tn.device)}
     out_t, out_p = [], []
     for s in range(0, tn.shape[0], PLAIN_CHUNK):
         e = s + PLAIN_CHUNK
         t, prim = _plain_batch(ts, org[s:e], d[s:e], tn[s:e], tf[s:e],
-                               bool(occluded), bool(cull))
+                               bool(occluded), bool(cull), cnt)
         out_t.append(t)
         out_p.append(prim)
-    if not out_t:
-        return (torch.empty(0, dtype=torch.float32, device=tn.device),
-                torch.empty(0, dtype=torch.int32, device=tn.device))
-    return torch.cat(out_t), torch.cat(out_p)
+    if out_t:
+        t, prim = torch.cat(out_t), torch.cat(out_p)
+    else:
+        t = torch.empty(0, dtype=torch.float32, device=tn.device)
+        prim = torch.empty(0, dtype=torch.int32, device=tn.device)
+    if not stats:
+        return t, prim
+    return t, prim, _stats_dict(tn.shape[0], cnt["mids"], cnt["treelets"],
+                                cnt["nodes"], cnt["pairs"],
+                                cnt["touched"].sum().item())

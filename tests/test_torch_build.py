@@ -211,12 +211,26 @@ def test_cut_ranges_python_fallback_equal(monkeypatch):
 
 
 def test_to_device_keeps_bits():
+    """The device holds the compact form; its words are the blocks' words
+    (tests/test_torch_rowtrace_compact.py holds every word to its source)."""
     v0, v1, v2 = _soup(4, 700)
     b = port_treelets.build_treelet_scene(v0, v1, v2, np.arange(700), fan=4)
     ts = b.to_device("cpu")
-    assert ts.blocks.shape == (b.num_treelets, port_treelets.BLOCK_ROWS, 128)
-    np.testing.assert_array_equal(ts.blocks.numpy().view(np.uint32),
-                                  b.blocks.view(np.uint32))
-    assert ts.mid_boxes.shape == (b.num_mids, 6)
-    assert ts.device_bytes == (b.blocks.nbytes + b.mid_boxes.nbytes
-                               + b.tre_boxes.nbytes)
+    N = b.num_treelets
+    assert ts.nodes.shape == (N, port_treelets.N_INNER,
+                              port_treelets.NODE_ROWS)
+    assert ts.pairs.shape == (N, port_treelets.N_PAIRS,
+                              port_treelets.LEAF_FIELDS)
+    np.testing.assert_array_equal(
+        ts.nodes.numpy().view(np.uint32),
+        b.blocks[:, :port_treelets.NODE_ROWS,
+                 :port_treelets.N_INNER].transpose(0, 2, 1).view(np.uint32))
+    assert ts.mid_boxes.shape == (b.num_mids, port_treelets.BOX_WORDS)
+    np.testing.assert_array_equal(ts.mid_boxes.numpy()[:, :6].view(np.uint32),
+                                  b.mid_boxes.view(np.uint32))
+    assert ts.device_bytes == 4 * N * (
+        port_treelets.N_INNER * port_treelets.NODE_ROWS
+        + port_treelets.N_PAIRS * port_treelets.LEAF_FIELDS
+        + port_treelets.BOX_WORDS) + 4 * b.num_mids * port_treelets.BOX_WORDS
+    assert ts.device_bytes < b.blocks.nbytes + b.mid_boxes.nbytes \
+        + b.tre_boxes.nbytes

@@ -20,6 +20,7 @@ import torch
 import embree_tpu as et
 import embree_tpu_torch as ett
 from embree_tpu_torch.traverse import cbvh
+from embree_tpu_torch.scene import scene as scene_module
 from embree_tpu_torch.traverse import cbvh_kernel as ck
 from embree_tpu_torch.verify.fixtures import subdiv_cube
 from test_torch_build import reference_native  # noqa: F401,E402
@@ -120,13 +121,27 @@ def test_occluded_matches_xla_path(mode, flavor):
     assert (got | ~sc.intersect(rays).valid).all()
 
 
+def displ(p, ng, u, v):
+    return (p + 0.15 * ng * np.sin(5 * p[..., :1])).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def leaf43():
     """A displaced cube at levels (4, 3) in every kernel mode, port only."""
-    def displ(p, ng, u, v):
-        return (p + 0.15 * ng * np.sin(5 * p[..., :1])).astype(np.float32)
     return {m: port_scene(m, levels=(4, 3), displacement=displ)
             for m in ck.MODES}
+
+
+@pytest.fixture(scope="module")
+def leaf43_accels():
+    """The unpacked accels of `leaf43`'s scenes, which a committed scene
+    drops once it has packed them (`scene.ids_only` patched to the
+    identity keeps them)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(scene_module, "ids_only", lambda accel: accel)
+        return {m: port_scene(m, levels=(4, 3),
+                              displacement=displ).committed.compressed
+                for m in ck.MODES}
 
 
 @pytest.mark.parametrize("mode", ck.MODES)
@@ -156,20 +171,24 @@ def test_answer_independent_of_ray_order_and_batch_split(leaf43, mode,
     assert (occ | (whole[3] < 0)).all()
 
 
-def test_packed_and_unpacked_sources_agree_bit_for_bit(leaf43):
-    """The plain version of the kernel (packed rows) and the torch-op
-    traversal (unpacked tiles) decode the same 'com' nodes."""
+def test_packed_and_unpacked_sources_agree_bit_for_bit(leaf43,
+                                                       leaf43_accels):
+    """The plain version of the kernel (the compact form a scene commits)
+    and the torch-op traversal (unpacked tiles) decode the same 'com'
+    nodes."""
     org, d = rays_np(seed=5, n=96)
     rays = ett.make_rays(org, d, device="cpu")
     for mode in ck.MODES:
         cs = leaf43[mode].committed
+        full = leaf43_accels[mode]
+        assert full.top is not None
         a = ck.intersect_compressed_kernel(cs.compressed_kernel, rays)
-        b = cbvh.intersect_compressed(cs.compressed, rays)
+        b = cbvh.intersect_compressed(full, rays)
         for x, y in zip(a, b):
             assert torch.equal(x, y), mode
         assert torch.equal(
             ck.occluded_compressed_kernel(cs.compressed_kernel, rays),
-            cbvh.occluded_compressed(cs.compressed, rays))
+            cbvh.occluded_compressed(full, rays))
 
 
 def test_t_in_and_retired_rays(leaf43):

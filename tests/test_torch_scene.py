@@ -212,10 +212,9 @@ def test_committed_scene_from_reference(rng, monkeypatch):
                                        own.rowtrace.num_mids,
                                        own.rowtrace.num_treelets,
                                        own.rowtrace.num_prims)
-    assert torch.equal(cs.rowtrace.blocks.view(torch.int32),
-                       own.rowtrace.blocks.view(torch.int32))
-    assert torch.equal(cs.rowtrace.mid_boxes, own.rowtrace.mid_boxes)
-    assert torch.equal(cs.rowtrace.tre_boxes, own.rowtrace.tre_boxes)
+    for k in ("nodes", "pairs", "fan_boxes", "mid_boxes"):
+        assert torch.equal(getattr(cs.rowtrace, k).view(torch.int32),
+                           getattr(own.rowtrace, k).view(torch.int32)), k
     assert torch.equal(cs.prim_mask, own.prim_mask)
     assert torch.equal(cs.packet.nodes, own.packet.nodes)
     assert torch.equal(cs.packet.tdata, own.packet.tdata)

@@ -150,14 +150,20 @@ def test_interpolate_smooth_normals(scenes):
 
 
 def test_memory_footprint():
-    """Paper headline: 'com' node = 4 bytes, pizza leaf = 2 bytes a cell."""
+    """Paper headline: 'com' node = 4 bytes, pizza leaf = 2 bytes a cell.
+    A committed leaf-mode scene holds one compact record a tile (the 44
+    header floats, 21 node words padded to 24, 32 leaf words) and of the
+    accel itself only its ids and uv tables."""
     sc = make_scene("leaf", levels=(4, 3))
-    tiles = sc.committed.compressed.tiles
+    cs = sc.committed
+    tiles, pc = cs.compressed.tiles, cs.compressed_kernel
     cells = (1 << tiles.comp_level) ** 2
-    assert tiles.nodes.shape[1] == (4 ** tiles.comp_level - 1) // 3 == 21
-    assert tiles.nodes.shape[1] * 4 + cells * 2 == 21 * 4 + 64 * 2
-    assert tiles.num_tiles == 6 * 4
-    assert sc.device.bytes_used > 24 * 3 * 512
+    words, node_ofs, leaf_ofs = ck.tile_layout(tiles.comp_level, tiles.mode)
+    assert leaf_ofs - node_ofs == 24 >= (4 ** tiles.comp_level - 1) // 3
+    assert (leaf_ofs - node_ofs) * 4 + cells * 2 == 24 * 4 + 64 * 2
+    assert words == 44 + 24 + 32 and pc.tiles.shape == (24, words)
+    assert tiles.num_tiles == 6 * 4 and tiles.nodes is None
+    assert sc.device.bytes_used > 24 * words * 4
 
 
 def test_subdiv_only_scene_and_empty_triangles(scenes, capsys):
