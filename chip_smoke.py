@@ -69,9 +69,12 @@ roofline bound.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -368,7 +371,7 @@ def roofline_bound(ts, stats):
 
 def check_close(name, t_k, t_p, p_k, p_p):
     """prim equal, t within 1 ulp, same finite mask: (ulps, max abs err)
-    of t."""
+    of t. The callers that hold a kernel at 0 ulp raise on ulps > 0."""
     if not torch.equal(p_k, p_p):
         n = int((p_k != p_p).sum())
         raise AssertionError(f"{name}: prim differs on {n} rays")
@@ -383,7 +386,7 @@ def check_close(name, t_k, t_p, p_k, p_p):
 
 def compare_packet_plain(ps, rays, occluded, cull, label, ray_mask=None):
     """Packet kernel (main and counting build) and plain version on the
-    same card tensors: prim equal, t within 1 ulp, counters equal, no
+    same card tensors: prim equal, t at 0 ulp, counters equal, no
     dropped push. Returns (max_abs_err, plain_ms)."""
     t_k, p_k, _ = pk.packet_trace(ps, rays, occluded, cull, ray_mask)
     t_s, p_s, st_k = pk.packet_trace(ps, rays, occluded, cull, ray_mask,
@@ -397,8 +400,10 @@ def compare_packet_plain(ps, rays, occluded, cull, label, ray_mask=None):
     ev1.record()
     torch.cuda.synchronize()
     plain_ms = ev0.elapsed_time(ev1)
-    _ulps, err = check_close(label, t_k, t_p, p_k, p_p)
-    check_close(label + " (counting build)", t_s, t_p, p_s, p_p)
+    ulps, err = check_close(label, t_k, t_p, p_k, p_p)
+    ulps_s, _ = check_close(label + " (counting build)", t_s, t_p, p_s, p_p)
+    if ulps or ulps_s:
+        raise AssertionError(f"{label}: t differs by {max(ulps, ulps_s)} ulp")
     if st_k != st_p:
         raise AssertionError(f"{label}: counters differ: {st_k} vs {st_p}")
     if st_k["dropped_pushes"] != 0:
@@ -408,7 +413,7 @@ def compare_packet_plain(ps, rays, occluded, cull, label, ray_mask=None):
         raise AssertionError(f"{label}: the occluded variant wrote a prim")
     hits = int((t_k == -math.inf).sum()) if occluded else int((p_k >= 0).sum())
     log(f"  {label}: {rays.tnear.numel()} rays, {hits} hits, prim equal, "
-        f"t max abs err {err:g}, counters equal "
+        f"t at 0 ulp (max abs err {err:g}), counters equal "
         f"({st_k['node_visits']} node visits, {st_k['tri_tests']} triangle "
         f"tests, 0 dropped), plain {plain_ms:.0f} ms")
     return err, plain_ms
@@ -419,7 +424,8 @@ def packed_scene(verts, idx, width, device, prim_mask=None):
     v0, v1, v2 = (np.ascontiguousarray(v[:, k]) for k in range(3))
     lo, hi = prim_bounds_np(v0, v1, v2)
     bvh = build_sah(lo, hi, BuildSettings(branching_factor=width))
-    return pk.pack_scene(bvh, (v0, v1, v2), device, prim_mask=prim_mask)
+    return pk.compact_scene(pk.pack_scene(bvh, (v0, v1, v2), "cpu",
+                                          prim_mask=prim_mask), device)
 
 
 def packet_small_scene_checks(device):
@@ -460,12 +466,13 @@ def packet_small_scene_checks(device):
             err, _ = compare_packet_plain(ps, rays, occluded, cull,
                                           f"{name}, {mode}")
             worst = max(worst, err)
-    # a leaf whose triangles lie in two leaf rows: start % 10 + count > 10
+    # a leaf whose triangles lay in two of the JAX package's leaf rows:
+    # start % 10 + count > 10
     straddle = False
     for _name, ps, _e, _n in scenes:
         w = ps.width
-        row = ps.nodes[:, 6 * w:8 * w].cpu().numpy()
-        start, count = row[:, :w].astype(int), row[:, w:].astype(int)
+        start, count = (x.cpu().numpy() for x in pk.pulled_refs(
+            ps.nodes[:, 6 * w:7 * w].contiguous().view(torch.int32)))
         straddle |= bool(((count > 0) & (start % 10 + count > 10)).any())
     if not straddle:
         raise AssertionError("no small scene has a leaf over two leaf rows")
@@ -608,7 +615,12 @@ def packet_bound(ps, st):
     """Least time the card could take for what this run's rays needed
     of the packet kernel: the larger of bytes / memory rate (rays in,
     (t, prim) out, the used part of every touched node row and leaf row
-    once) and counted float32 operations / the non-tensor fp32 peak."""
+    once) and counted float32 operations / the non-tensor fp32 peak.
+
+    A touched leaf row is still counted as the ten triangles of a row of
+    the JAX package's layout (`rows_touched`), which the compact form's
+    back-to-back triangle records no longer group: kept so that the
+    kernel before and after the compact form is held to one bound."""
     nbytes = (st["rays"] * (8 * 4 + 2 * 4)
               + st["nodes_touched"] * 8 * ps.width * 4
               + st["rows_touched"] * pk.NT_PER_ROW * pk.TRI_FLOATS * 4)
@@ -637,7 +649,8 @@ def packet_times(label, ps, flat, cull=False):
             f"{st['node_visits'] / n:.2f} node visits, "
             f"{st['tri_tests'] / n:.2f} triangle tests; "
             f"{st['nodes_touched']} of {ps.num_nodes} node rows and "
-            f"{st['rows_touched']} of {ps.tdata.shape[0]} leaf rows touched; "
+            f"{st['rows_touched']} of {pk.leaf_rows(ps.num_prims)} leaf rows "
+            "of ten triangles touched; "
             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
             f"(bytes {bound['bytes'] / 1e6:.1f} MB -> "
             f"{bound['bytes_ms']:.4f} ms, operations "
@@ -811,6 +824,29 @@ def tile_row_bytes(pc):
     """Bytes of one tile in the JAX package's rows: 3 rows of 512 B, 8
     more for a grid."""
     return 512 * (3 + (ck.GRID_ROWS if pc.mode == "grid" else 0))
+
+
+def packet_row_bytes(ps):
+    """Bytes of a packet scene in the JAX package's rows (`pack_scene`):
+    512 B a node, 512 B a leaf row of ten triangles and the pad row,
+    bvh_to_orig and the mask, as a committed scene held them before the
+    compact form."""
+    return (ps.num_nodes * 512 + pk.leaf_rows(ps.num_prims) * 512
+            + ps.bvh_to_orig.numel() * 4
+            + (ps.prim_mask.numel() * 4 if ps.prim_mask is not None else 0))
+
+
+def packet_bytes_line(label, ps):
+    """Log the committed compact bytes of a packet scene beside the rows'."""
+    rows = packet_row_bytes(ps)
+    nodes, tris = 4 * ps.nodes.numel(), 4 * ps.tdata.numel()
+    log(f"  {label}: BVH{ps.width} of {ps.num_nodes} nodes in {ps.depth} "
+        f"levels, {ps.num_prims} triangles; compact form "
+        f"{ps.device_bytes / 1e6:.1f} MB on the card (nodes "
+        f"{nodes / 1e6:.1f}, triangles {tris / 1e6:.1f}, ids and masks "
+        f"{(ps.device_bytes - nodes - tris) / 1e6:.1f}), the JAX "
+        f"package's rows {rows / 1e6:.1f} MB")
+    return ps.device_bytes, rows
 
 
 def packed_row_bytes(pc):
@@ -1705,6 +1741,36 @@ def grid_triangles(pc):
 
 
 
+def ptxas_summary(text, names):
+    """(kernel, registers, stack bytes, spill stores, spill loads) of every
+    entry function of ptxas' report whose name contains one of `names`."""
+    out, cur, frame = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            if any(nm in cur for nm in names):
+                try:
+                    shown = subprocess.run(
+                        ["c++filt", cur], capture_output=True, text=True,
+                        timeout=30).stdout.strip()
+                    shown = shown.replace("(anonymous namespace)::",
+                                          "").split("(")[0]
+                except OSError:
+                    shown = cur
+                out.append((shown or cur, int(m.group(1))) + frame)
+            cur, frame = None, (0, 0, 0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1728,9 +1794,16 @@ def main() -> int:
     shutil.rmtree(nvcc.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     # packet.cu holds kernels B2 and B3
-    nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME, ck.KERNEL_NAME,
-                          mk.KERNEL_NAME], verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        nvcc.build_libraries([rt2.KERNEL_NAME, pk.KERNEL_NAME, ck.KERNEL_NAME,
+                              mk.KERNEL_NAME], verbose=True)
+    print(report.getvalue())
     nvcc_s = time.perf_counter() - t0
+    for row in ptxas_summary(report.getvalue(),
+                             ["packet_kernel", "cbvh_occluded_kernel"]):
+        log("  B2 / B5 entry %s: %d registers, %d B stack frame, %d B "
+            "spill stores, %d B spill loads" % row)
     t0 = time.perf_counter()
     if not sah_native.native_available():
         raise AssertionError("the native SAH builder did not build")
@@ -1857,6 +1930,7 @@ def main() -> int:
         f"{scs.tris.num_prims} triangles in 2 geometries, "
         f"BVH{scs.packet.width} of {scs.packet.num_nodes} nodes in "
         f"{scs.packet.depth} levels")
+    packet_bytes_line("(a) committed", scs.packet)
     if scs.tris.num_prims != 99012 or scs.rowtrace is not None:
         raise AssertionError("scene (a) is not a 99,012-triangle packet scene")
     with Launches() as lc:
@@ -1902,6 +1976,18 @@ def main() -> int:
         raise AssertionError("(c): ray masks 0 and 3 do not behave")
     brute_check("(c) masked request", scs.tris, rays, h_m.valid, h_m.t,
                 ray_mask=rmask, prim_mask=scs.prim_mask)
+    # the kernel against its plain version on every ray of (a)
+    pk_a_err, pk_plain_ms = compare_packet_plain(
+        scs.packet, rays, False, False,
+        f"99,012 triangles, all 2^{LOG2_RAYS} rays of (a), closest")
+    for label, occl, rm_ in (("any hit", True, None),
+                             ("masked, closest", False, rmask),
+                             ("masked, any hit", True, rmask)):
+        err, _ = compare_packet_plain(
+            scs.packet, rays, occl, False,
+            f"99,012 triangles, all 2^{LOG2_RAYS} rays of (a), {label}",
+            ray_mask=rm_)
+        pk_a_err = max(pk_a_err, err)
 
     # (b) the 998,284-triangle scene: a coherent frame and a small batch
     cam = Camera(from_=(0.5, 1.0, -4.5), to=(0.0, 0.0, 0.0))
@@ -1924,6 +2010,10 @@ def main() -> int:
     log(f"  (b) {FRAME[0]}x{FRAME[1]} coherent camera rays: hit fraction "
         f"{frac_fr:.4f}")
     frame_flat = flat_rays(frame)
+    main_bytes, main_rows = packet_bytes_line("(b) committed", cs.packet)
+    if not main_bytes < 0.5 * main_rows:
+        raise AssertionError("the committed packet scene is not below half "
+                             "of the rows' bytes")
     brute_check("(b) coherent frame", cs.tris, frame_flat, h_fr.valid, h_fr.t)
     brute_check("(b) 2^15 incoherent rays", cs.tris, few, h_few.valid,
                 h_few.t)
@@ -1947,9 +2037,10 @@ def main() -> int:
         cs.packet, head2, False, False,
         f"998,284 triangles, the first 2^{B2_PLAIN_LOG2} rays of the main "
         "path")
-    pk_a_err, pk_plain_ms = compare_packet_plain(
-        scs.packet, head2, False, False,
-        f"99,012 triangles, the first 2^{B2_PLAIN_LOG2} rays of (a)")
+    err, _ = compare_packet_plain(
+        cs.packet, frame_flat, False, False,
+        f"998,284 triangles, the {FRAME[0]}x{FRAME[1]} coherent frame")
+    pk_full_err = max(pk_full_err, err)
 
     # (d) the triangle_geometry tutorial
     app = tutorial.make_app()
@@ -2196,6 +2287,7 @@ def main() -> int:
     log(f"  eager commit {time.perf_counter() - t0:.1f} s: "
         f"{ecs.tris.num_prims} triangles, BVH{ecs.packet.width} of "
         f"{ecs.packet.num_nodes} nodes in {ecs.packet.depth} levels")
+    packet_bytes_line("eager mesh committed", ecs.packet)
     if ecs.rowtrace is not None or ecs.tris.num_prims != 2 * cells:
         raise AssertionError("the eager scene is not two triangles a cell "
                              "on the packet path")
@@ -2731,7 +2823,7 @@ def main() -> int:
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
     # rays (the counting plain version). packet: ms and bound_ms belong to
     # the closest-hit launch of (a) (2^21 rays, 99,012 triangles), plain_ms
-    # to its first 2^16 rays. cbvh and cbvh_occluded: ms and bound_ms
+    # to the same rays (counting). cbvh and cbvh_occluded: ms and bound_ms
     # belong to the 2^21 incoherent rays on the main-c scene
     # (`pc.num_tiles` tiles), plain_ms to the same rays (counting);
     # cbvh_occluded's max_abs_err counts the rays whose answer differs
@@ -2762,7 +2854,7 @@ def main() -> int:
         "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
                            lane_err["packet"]),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
-        "plain_rays": nb2,
+        "plain_rays": n,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],
         "bound_by": pk_a["closest"]["bound"]["bound_by"],
         "library_ms": None,

@@ -24,7 +24,7 @@ from .traverse.cbvh import CompressedAccel
 from .traverse.hair_kernel import WIDTH as HAIR_WIDTH, packed_from_arrays
 from .traverse.mb import MBAccel, MBCurves
 from .traverse.mb_kernel import PackedMB, pack_rows, packed_from_rows
-from .traverse.packet_kernel import PackedScene, tree_depth
+from .traverse.packet_kernel import PackedScene, compact_scene, tree_depth
 
 
 def _tensor(a, dtype, device, shape=None):
@@ -44,7 +44,8 @@ def committed_scene_from_reference(arrays: dict, device) -> CommittedScene:
     (M, W, 3) f32, `bvh.child`, `bvh.count` (M, W) i32, `bvh.prim_order`
     (P,) i32; `packet.nodes` (M, 128) f32, `packet.tdata`
     (ceil(P/10)+1, 128) f32, `packet.bvh_to_orig` (P,) i32,
-    `packet.num_nodes`, `packet.num_prims`, `packet.width`;
+    `packet.num_nodes`, `packet.num_prims`, `packet.width` (cut to the
+    compact form, traverse/packet_kernel.py::compact_scene);
     `rowtrace.blocks`
     (Ntr, 52, 128) f32, `rowtrace.mid_boxes` (M, 6) or flat (M*6,) f32,
     `rowtrace.tre_boxes` (M, 6, 128) f32, `rowtrace.fan`,
@@ -77,14 +78,14 @@ def committed_scene_from_reference(arrays: dict, device) -> CommittedScene:
         P = int(arrays["packet.num_prims"])
         if int(arrays["packet.width"]) != W or M != bvh_child.shape[0]:
             raise ValueError("packet.* and bvh.* describe different trees")
-        order = _tensor(arrays["packet.bvh_to_orig"], i32, device, (P,))
-        packet = PackedScene(
-            nodes=_tensor(arrays["packet.nodes"], f32, device, (M, 128)),
-            tdata=_tensor(arrays["packet.tdata"], f32, device, (-1, 128)),
+        order = _tensor(arrays["packet.bvh_to_orig"], i32, "cpu", (P,))
+        pm = prim_mask.cpu()
+        packet = compact_scene(PackedScene(
+            nodes=_tensor(arrays["packet.nodes"], f32, "cpu", (M, 128)),
+            tdata=_tensor(arrays["packet.tdata"], f32, "cpu", (-1, 128)),
             bvh_to_orig=order, num_nodes=M, num_prims=P, width=W,
             depth=tree_depth(bvh_child, bvh_count),
-            prim_mask=(prim_mask[order.long()].contiguous()
-                       if P else prim_mask))
+            prim_mask=pm[order.long()].contiguous() if P else pm), device)
     elif tris.num_prims:
         raise ValueError("a non-empty scene needs the packet.* arrays")
     rowtrace = None

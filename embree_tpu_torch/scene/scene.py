@@ -9,8 +9,9 @@ host and publishes an immutable `CommittedScene` of tensors on the Device's
 device:
 
   * always: the binned-SAH wide BVH (build/sah.py; BVH4, or BVH8 when
-    `tri_accel` starts with "bvh8") and its packed form for the packet
-    kernel (traverse/packet_kernel.py);
+    `tri_accel` starts with "bvh8") and its compact form for the packet
+    kernel (traverse/packet_kernel.py::compact_scene; the row layout it
+    is cut from stays on the host);
   * when the scene has at least ROWTRACE_MIN_PRIMS triangles or
     `tri_accel` ends in ".rowtrace", and `tri_accel` does not end in
     ".packet": the two-level treelet scene (build/treelets.py) as well;
@@ -107,7 +108,8 @@ from ..traverse.hair_kernel import (PackedHair, PackedHairSet,
 from ..traverse.mb import MBAccel, MBCurves, intersect_mb_curves, ray_times
 from ..traverse.mb_kernel import PackedMB, intersect_mb_kernel, pack_mb
 from ..traverse.packet import _finalize_hits
-from ..traverse.packet_kernel import (PackedScene, intersect_packet_kernel_raw,
+from ..traverse.packet_kernel import (CompactScene, compact_scene,
+                                      intersect_packet_kernel_raw,
                                       occluded_packet_kernel, pack_scene)
 from ..traverse.rowtrace2 import intersect_rowtrace2
 from ..traverse.user import UserAccel, intersect_user
@@ -205,7 +207,7 @@ class CommittedScene(NamedTuple):
 
     tris: TrianglePrims
     bvh: BVH                          # the wide BVH (one empty node if no prims)
-    packet: Optional[PackedScene]     # None for an empty scene
+    packet: Optional[CompactScene]    # None for an empty scene
     rowtrace: Optional[TreeletScene]  # None below ROWTRACE_MIN_PRIMS
     prim_mask: torch.Tensor           # (T,) i32 per-prim geometry mask
     world_lower: torch.Tensor         # (3,) f32
@@ -430,8 +432,10 @@ class Scene:
         self._progress(0.9)
         if nprims:
             with profile_phase("scene.pack_packet"):
-                packet = pack_scene(bvh_np, (v0, v1, v2), dev,
-                                    prim_mask=lut[geom])
+                # the rows stay on the host: the card holds the compact form
+                packet = compact_scene(
+                    pack_scene(bvh_np, (v0, v1, v2), "cpu",
+                               prim_mask=lut[geom]), dev)
         # compressed subdiv accel (fork modes, scene.cpp:507-510)
         compressed = None
         compressed_kernel = None

@@ -41,7 +41,7 @@ class SubdivEval(NamedTuple):
     grid_res: int
 
 
-def build_subdiv_geometry(mesh, subdivision_level: int, device="cpu"):
+def build_subdiv_geometry(mesh, subdivision_level: int, device):
     """Evaluate one SubdivMesh: plan, subdivide, displace, grids, normals
     (host numpy); the evaluation grids land on `device`.
 

@@ -9,12 +9,23 @@ is its `PallasScene`): one 128-float row per node with 8 stride-W fields
 Ng = e2 x e1) plus one pad row, and `bvh_to_orig` from BVH slot to
 flattened prim index.
 
+`compact_scene` cuts those rows to what the kernel reads (`CompactScene`,
+the form a committed scene holds on the device): node records of the 8W
+used floats (128 bytes for BVH4, 256 for BVH8) back to back, and
+triangle records of 12 floats (three float4s) back to back in BVH order.
+Every word is the one it came from, but a node's child fields: each
+holds, as int32 bits, the ref the walk pushes for that child
+(`push_refs`: the node index, -((start << 4 | count) + 1) for a leaf,
+INT32_MIN for an empty slot), which spares the kernel W float-to-int
+conversions a node.
+
 `intersect_packet_kernel`, `intersect_packet_kernel_raw` and
 `occluded_packet_kernel` are the entries. On CUDA tensors they launch the
 hand-written kernel `csrc/packet.cu` (built and loaded at first use by
-core/nvcc.py) or raise; on CPU tensors they run `packet_plain`, the same
-per-ray function written with masked tensor ops over an (R, D) stack.
-Both compute, for every ray on its own:
+core/nvcc.py) over the compact form or raise; on CPU tensors they run
+`packet_plain`, the same per-ray function written with masked tensor ops
+over an (R, D) stack, over either form. Both compute, for every ray on
+its own:
 
   * a stack of (ref, entry distance) with the root first; a popped entry
     is skipped when its entry distance exceeds the ray's current t;
@@ -62,6 +73,7 @@ NT_PER_ROW = 10                 # tris per row (10 x 12 floats + 8 pad)
 TRI_FLOATS = 12
 MAX_LEAF = 8                    # builder max_leaf_size must stay <= 11
 MAX_DEPTH = 64                  # levels the kernel's compiled stack serves
+EMPTY = -2 ** 31                # pushed ref of an empty child slot
 PLAIN_CHUNK = 65536             # rays per lock-step batch of the plain version
 
 KERNEL_NAME = "packet"          # csrc/packet.cu -> _build/libpacket.so
@@ -90,6 +102,35 @@ class PackedScene(NamedTuple):
                  + self.bvh_to_orig.numel())
         return n + (4 * self.prim_mask.numel()
                     if self.prim_mask is not None else 0)
+
+
+class CompactScene(NamedTuple):
+    """The compact device form of a packed scene (`compact_scene`), what
+    the kernel reads and a committed scene holds."""
+
+    nodes: torch.Tensor        # (M, 8W) f32 node records, child fields
+                               # holding pushed refs as int32 bits
+    tdata: torch.Tensor        # (max(T, 1), 12) f32 triangle records
+    bvh_to_orig: torch.Tensor  # (T,) i32 BVH slot -> flattened prim index
+    num_nodes: int
+    num_prims: int
+    width: int
+    depth: int                 # levels of nodes, the root being level 1
+    prim_mask: Optional[torch.Tensor] = None  # (T,) i32 geometry mask, BVH order
+
+    @property
+    def device_bytes(self) -> int:
+        n = 4 * (self.nodes.numel() + self.tdata.numel()
+                 + self.bvh_to_orig.numel())
+        return n + (4 * self.prim_mask.numel()
+                    if self.prim_mask is not None else 0)
+
+
+def leaf_rows(num_prims: int) -> int:
+    """Leaf rows of the JAX package's layout: ten triangles a row and one
+    pad row. The counting build counts the rows it touches in these
+    units in either form."""
+    return -(-max(num_prims, 1) // NT_PER_ROW) + 1
 
 
 def tree_depth(child: np.ndarray, count: np.ndarray) -> int:
@@ -155,28 +196,69 @@ def pack_scene(bvh: BVHArraysNP, host_tris, device,
         depth=tree_depth(child, count), prim_mask=pm)
 
 
+def push_refs(child: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """The ref the walk pushes for each child slot, (M, W) i32: the node
+    index for an inner child (count 0), -((start << 4 | count) + 1) for a
+    leaf (count 1..15, `start` its first triangle), EMPTY for an empty
+    slot (count < 0)."""
+    child = child.astype(np.int64)
+    count = count.astype(np.int64)
+    if (count > 15).any():
+        raise ValueError("a leaf of more than 15 triangles")
+    leaf = -(((child << 4) | count) + 1)
+    return np.where(count > 0, leaf,
+                    np.where(count == 0, child, EMPTY)).astype(np.int32)
+
+
+def compact_scene(ps: PackedScene, device=None) -> CompactScene:
+    """`pack_scene`'s rows cut to the compact form (host numpy, then
+    uploaded to `device`, by default the rows' own): the 8W used floats
+    of each node row with the child fields replaced by `push_refs`, and
+    the 12 floats of each triangle, back to back in BVH order."""
+    device = ps.nodes.device if device is None else torch.device(device)
+    W, T = ps.width, ps.num_prims
+    nodes = ps.nodes.cpu().numpy()[:, :8 * W].copy()
+    nodes[:, 6 * W:7 * W] = push_refs(nodes[:, 6 * W:7 * W],
+                                      nodes[:, 7 * W:8 * W]).view(np.float32)
+    td = ps.tdata.cpu().numpy()[:, :NT_PER_ROW * TRI_FLOATS]
+    tris = td.reshape(-1, TRI_FLOATS)[:max(T, 1)]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return CompactScene(
+        nodes=up(nodes), tdata=up(tris), bvh_to_orig=ps.bvh_to_orig.to(device),
+        num_nodes=ps.num_nodes, num_prims=T, width=W, depth=ps.depth,
+        prim_mask=None if ps.prim_mask is None else ps.prim_mask.to(device))
+
+
 # ---------------------------------------------------------------------------
 # wrapper
 # ---------------------------------------------------------------------------
 
 def _load_kernel():
     lib = load_library(KERNEL_NAME)
-    p = ctypes.c_void_p
-    lib.packet_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.packet_launch.restype = i
     lib.packet_launch.argtypes = [
-        p, p, ctypes.c_int, p, p,                 # scene, masks
+        p, p, i, i, p, p,                         # scene, masks
         p, p, p, p, ctypes.c_longlong,            # rays
-        p, p, ctypes.c_int, ctypes.c_int,         # out, variant
+        p, p, i, i,                               # out, variant
         p, p, p, p]                               # stats, stream
-    lib.packet_max_depth.restype = ctypes.c_int
+    lib.packet_max_depth.restype = i
     lib.packet_max_depth.argtypes = []
     lib.packet_error_string.restype = ctypes.c_char_p
-    lib.packet_error_string.argtypes = [ctypes.c_int]
+    lib.packet_error_string.argtypes = [i]
     return lib
 
 
-def _checked_inputs(ps: PackedScene, rays: Rays, ray_mask):
-    """Flat ray tensors and masks after the checks both versions share."""
+def _checked_inputs(ps: CompactScene, rays: Rays, ray_mask,
+                    plain: bool = False):
+    """Flat ray tensors and masks after the checks both versions share.
+    `ps` is the compact form; the plain version (`plain`) also walks
+    `pack_scene`'s rows, which the tests hold against the JAX package."""
+    if not isinstance(ps, CompactScene) and not plain:
+        raise ValueError("the kernel reads the compact form: "
+                         "compact_scene(packed)")
     device = ps.nodes.device
     f32, i32 = torch.float32, torch.int32
     if ps.width not in (4, 8):
@@ -185,9 +267,15 @@ def _checked_inputs(ps: PackedScene, rays: Rays, ray_mask):
         raise ValueError(
             f"tree of {ps.depth} levels: the kernel's stack serves at most "
             f"{MAX_DEPTH}")
-    check_tensor("nodes", ps.nodes, device, f32, (ps.num_nodes, 128))
-    nrow = -(-max(ps.num_prims, 1) // NT_PER_ROW) + 1
-    check_tensor("tdata", ps.tdata, device, f32, (nrow, 128))
+    if isinstance(ps, CompactScene):
+        check_tensor("nodes", ps.nodes, device, f32,
+                     (ps.num_nodes, 8 * ps.width))
+        check_tensor("tdata", ps.tdata, device, f32,
+                     (max(ps.num_prims, 1), TRI_FLOATS))
+    else:
+        check_tensor("nodes", ps.nodes, device, f32, (ps.num_nodes, 128))
+        check_tensor("tdata", ps.tdata, device, f32,
+                     (leaf_rows(ps.num_prims), 128))
     check_tensor("bvh_to_orig", ps.bvh_to_orig, device, i32, (ps.num_prims,))
     R = rays.tnear.numel()
     org = rays.org.reshape(-1, 3)
@@ -212,10 +300,10 @@ def _checked_inputs(ps: PackedScene, rays: Rays, ray_mask):
 class _StatBuffers(NamedTuple):
     counters: torch.Tensor      # i64[4]: nodes, tris, drops, leaves
     node_touched: torch.Tensor  # i32[M]
-    row_touched: torch.Tensor   # i32[rows]
+    row_touched: torch.Tensor   # i32[leaf_rows]
 
 
-def _launch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded: bool,
+def _launch(ps: CompactScene, org, d, tn, tf, pm, rm, occluded: bool,
             cull: bool, stats: Optional[_StatBuffers]):
     """Launch the kernel on the current stream: (t, prim in BVH order)."""
     global launches
@@ -233,7 +321,7 @@ def _launch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded: bool,
     with torch.cuda.device(tn.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.packet_launch(
-            ps.nodes.data_ptr(), ps.tdata.data_ptr(), ps.width,
+            ps.nodes.data_ptr(), ps.tdata.data_ptr(), ps.width, ps.depth,
             ptr(pm), ptr(rm),
             org.data_ptr(), d.data_ptr(), tn.data_ptr(), tf.data_ptr(), R,
             t.data_ptr(), prim.data_ptr(), int(occluded), int(cull),
@@ -254,7 +342,7 @@ def _stats_dict(R, nodes, tris, drops, leaves, nodes_touched, rows_touched):
             "rows_touched": int(rows_touched)}
 
 
-def packet_trace(ps: PackedScene, rays: Rays, occluded: bool = False,
+def packet_trace(ps: CompactScene, rays: Rays, occluded: bool = False,
                  cull: bool = False, ray_mask=None, stats: bool = False):
     """One traversal: (t, prim in BVH order, counters or None), flat over
     rays. `prim` is -1 on a miss and for every any-hit ray; `t` is tfar
@@ -263,20 +351,21 @@ def packet_trace(ps: PackedScene, rays: Rays, occluded: bool = False,
     visits, leaf visits, triangle tests and dropped pushes; distinct
     node rows and leaf rows touched); on CUDA that launches the kernel's
     counting build, which is slower (atomics) and is not the main path.
-    Carries no gradient."""
-    org, d, tn, tf, pm, rm = _checked_inputs(ps, rays, ray_mask)
+    Carries no gradient. On CPU tensors `packet_plain` answers."""
     occluded, cull = bool(occluded), bool(cull)
-    if tn.device.type == "cpu":
-        out = packet_plain(ps, Rays(org, d, tn, tf), occluded, cull,
-                           ray_mask=rm, stats=stats)
+    if rays.tnear.device.type == "cpu":
+        out = packet_plain(ps, rays, occluded, cull, ray_mask=ray_mask,
+                           stats=stats)
         return out if stats else out + (None,)
+    org, d, tn, tf, pm, rm = _checked_inputs(ps, rays, ray_mask)
     if not stats:
         return _launch(ps, org, d, tn, tf, pm, rm, occluded, cull, None) \
             + (None,)
     buf = _StatBuffers(
         torch.zeros(4, dtype=torch.int64, device=tn.device),
         torch.zeros(ps.num_nodes, dtype=torch.int32, device=tn.device),
-        torch.zeros(ps.tdata.shape[0], dtype=torch.int32, device=tn.device))
+        torch.zeros(leaf_rows(ps.num_prims), dtype=torch.int32,
+                    device=tn.device))
     t, prim = _launch(ps, org, d, tn, tf, pm, rm, occluded, cull, buf)
     c = buf.counters.tolist()
     return t, prim, _stats_dict(tn.shape[0], *c,
@@ -291,7 +380,7 @@ def _record_stats(shadow: bool, st) -> None:
                              [[st["node_visits"], st["tri_tests"]]])
 
 
-def _to_orig(ps: PackedScene, prim_bvh):
+def _to_orig(ps: CompactScene, prim_bvh):
     """BVH slot -> flattened prim index (-1 stays -1)."""
     if ps.num_prims == 0:
         return prim_bvh
@@ -299,7 +388,7 @@ def _to_orig(ps: PackedScene, prim_bvh):
     return torch.where(prim_bvh >= 0, orig, torch.full_like(prim_bvh, -1))
 
 
-def intersect_packet_kernel_raw(ps: PackedScene, rays: Rays,
+def intersect_packet_kernel_raw(ps: CompactScene, rays: Rays,
                                 cull: bool = False, ray_mask=None):
     """Kernel-only entry: flat (t, prim) in ORIGINAL (flattened) prim
     ids, without hit finalization."""
@@ -309,8 +398,9 @@ def intersect_packet_kernel_raw(ps: PackedScene, rays: Rays,
     return t, _to_orig(ps, prim_bvh)
 
 
-def intersect_packet_kernel(ps: PackedScene, tris: TrianglePrims, rays: Rays,
-                            cull: bool = False, ray_mask=None) -> Hits:
+def intersect_packet_kernel(ps: CompactScene, tris: TrianglePrims,
+                            rays: Rays, cull: bool = False,
+                            ray_mask=None) -> Hits:
     """Closest hit; u, v, Ng and the ids are recomputed from the winning
     prim outside the kernel. Keeps the rays' batch shape."""
     shape = rays.batch_shape
@@ -323,7 +413,7 @@ def intersect_packet_kernel(ps: PackedScene, tris: TrianglePrims, rays: Rays,
     return Hits(*(x.reshape(shape + x.shape[1:]) for x in h))
 
 
-def occluded_packet_kernel(ps: PackedScene, rays: Rays, cull: bool = False,
+def occluded_packet_kernel(ps: CompactScene, rays: Rays, cull: bool = False,
                            ray_mask=None) -> torch.Tensor:
     """Any hit: bool tensor of the rays' batch shape."""
     if ray_mask is not None:
@@ -334,7 +424,7 @@ def occluded_packet_kernel(ps: PackedScene, rays: Rays, cull: bool = False,
     return (t == -math.inf).reshape(rays.batch_shape)
 
 
-def traversal_stats(ps: PackedScene, rays: Rays) -> np.ndarray:
+def traversal_stats(ps: CompactScene, rays: Rays) -> np.ndarray:
     """STAT3 analog: (1, 3) i64 [node visits, leaf triangle tests,
     dropped pushes] of one closest-hit launch over `rays` (the JAX
     package reports one such row per packet; here a launch is one)."""
@@ -362,8 +452,16 @@ def slab_tmin(lo, hi, rd, od, tn):
     return torch.maximum(tmin, tn[:, None]), tmax
 
 
+def pulled_refs(ref):
+    """(child, count) of pushed refs (`push_refs`), i32 tensors."""
+    v = -ref - 1
+    return (torch.where(ref >= 0, ref, v >> 4),
+            torch.where(ref >= 0, 0, torch.where(ref == EMPTY, -1, v & 15)))
+
+
 def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
-               leaf, children=None, max_leaf: int = MAX_LEAF):
+               leaf, children=None, max_leaf: int = MAX_LEAF,
+               refs: bool = False):
     """The kernel's walk in masked tensor ops, all rays of a batch in
     lock-step, one pop per ray and step, over node rows `nodes` of width
     W behind an (R, D) stack. A popped leaf goes to `leaf(la, start,
@@ -371,8 +469,9 @@ def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
     t, prim and (for any-hit rays that stop) sp in place. A popped node
     goes to `children(na, node, t)`, which returns (tmin, ok, child,
     count), each (k, W), for the rays `na` that popped `node`; by
-    default the slab test of the node rows' 8 stride-W fields. A leaf
-    child is pushed as -((start << 4 | count) + 1), its count cut to
+    default the slab test of the node rows' 8 stride-W fields, whose
+    child fields hold pushed refs (`push_refs`) when `refs` is set. A
+    leaf child is pushed as -((start << 4 | count) + 1), its count cut to
     `max_leaf` when popped. Shared by
     the triangle leaves of this kernel, the curve leaves of kernel B3
     (traverse/hair_kernel.py) and the lerped boxes and triangles of
@@ -388,9 +487,12 @@ def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
             f = nodes[node, :8 * W].view(-1, 8, W)
             tmin, tmax = slab_tmin(f[:, 0:3], f[:, 3:6], rd[na], od[na],
                                    tn[na])
-            # child and count are exact small floats in the row
-            cc = f[:, 6].to(torch.int32)
-            cn = f[:, 7].to(torch.int32)
+            if refs:
+                cc, cn = pulled_refs(f[:, 6].contiguous().view(torch.int32))
+            else:
+                # child and count are exact small floats in the row
+                cc = f[:, 6].to(torch.int32)
+                cn = f[:, 7].to(torch.int32)
             return (tmin, (tmin <= tmax) & (tmin <= t_na[:, None])
                     & (cn >= 0), cc, cn)
 
@@ -445,13 +547,14 @@ def plain_walk(nodes, W: int, D: int, org, d, tn, tf, occluded: bool, cnt,
     return t, prim
 
 
-def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
-                 stack_depth, cnt):
+def _plain_batch(ps: CompactScene | PackedScene, org, d, tn, tf, pm, rm,
+                 occluded, cull, stack_depth, cnt):
     dev = tn.device
     ox, oy, oz = org.unbind(1)
     dx, dy, dz = d.unbind(1)
     tflat = ps.tdata.view(-1)
     fofs = torch.arange(TRI_FLOATS, device=dev)
+    compact = isinstance(ps, CompactScene)
 
     def leaf(la, start, lcnt, t, prim, sp):
         for j in range(MAX_LEAF):
@@ -466,7 +569,8 @@ def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
             trow = p // NT_PER_ROW
             if cnt["row_touched"] is not None:
                 cnt["row_touched"][trow] = True
-            base = trow * 128 + (p - trow * NT_PER_ROW) * TRI_FLOATS
+            base = (p * TRI_FLOATS if compact else
+                    trow * 128 + (p - trow * NT_PER_ROW) * TRI_FLOATS)
             g = tflat[base[:, None] + fofs]                # (k, 12)
             v0x, v0y, v0z = g[:, 0], g[:, 1], g[:, 2]
             e1x, e1y, e1z = g[:, 3], g[:, 4], g[:, 5]
@@ -502,10 +606,11 @@ def _plain_batch(ps: PackedScene, org, d, tn, tf, pm, rm, occluded, cull,
                 prim[hs] = p[hit].to(torch.int32)
 
     return plain_walk(ps.nodes, ps.width, stack_depth, org, d, tn, tf,
-                      occluded, cnt, leaf)
+                      occluded, cnt, leaf, refs=compact)
 
 
-def packet_plain(ps: PackedScene, rays: Rays, occluded: bool = False,
+def packet_plain(ps: CompactScene | PackedScene, rays: Rays,
+                 occluded: bool = False,
                  cull: bool = False, ray_mask=None, stats: bool = False,
                  stack_depth: Optional[int] = None):
     """The kernel's function in plain PyTorch ops, float32, on whatever
@@ -515,8 +620,10 @@ def packet_plain(ps: PackedScene, rays: Rays, occluded: bool = False,
     `stats`. D defaults to what a depth-first walk of this tree can need,
     (W - 1) * depth + 1; a smaller `stack_depth` drops pushes, which are
     counted. Rays are independent, so they are processed PLAIN_CHUNK at
-    a time to bound memory."""
-    org, d, tn, tf, pm, rm = _checked_inputs(ps, rays, ray_mask)
+    a time to bound memory. `ps` is a CompactScene or a PackedScene: the
+    walk over either is the same, bit for bit, counters included (leaf
+    rows are counted in rows of ten triangles in both)."""
+    org, d, tn, tf, pm, rm = _checked_inputs(ps, rays, ray_mask, plain=True)
     dev = tn.device
     D = (ps.width - 1) * ps.depth + 1 if stack_depth is None else stack_depth
     cnt = {"nodes": 0, "tris": 0, "drops": 0, "leaves": 0,
@@ -524,8 +631,8 @@ def packet_plain(ps: PackedScene, rays: Rays, occluded: bool = False,
     if stats:
         cnt["node_touched"] = torch.zeros(ps.num_nodes, dtype=torch.bool,
                                           device=dev)
-        cnt["row_touched"] = torch.zeros(ps.tdata.shape[0], dtype=torch.bool,
-                                         device=dev)
+        cnt["row_touched"] = torch.zeros(leaf_rows(ps.num_prims),
+                                         dtype=torch.bool, device=dev)
     out_t = [torch.empty(0, dtype=torch.float32, device=dev)]
     out_p = [torch.empty(0, dtype=torch.int32, device=dev)]
     for s in range(0, tn.shape[0], PLAIN_CHUNK):

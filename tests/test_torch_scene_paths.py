@@ -390,7 +390,10 @@ def test_reference_commit_runs_through_the_port(rng, accel):
         assert a.dtype == b.dtype and torch.equal(a, b)
     for name in ("nodes", "tdata", "bvh_to_orig", "prim_mask"):
         a, b = getattr(cs.packet, name), getattr(own.packet, name)
-        assert a.dtype == b.dtype and torch.equal(a, b), name
+        # bits: the compact node records hold pushed refs as int bits,
+        # some of them NaN patterns
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32), b.view(torch.int32)), name
     assert cs.packet[3:7] == own.packet[3:7]    # counts, width, depth
     org, d = rays_np(rng, 400, 3.0)
     rays = ett.make_rays(org, d, device="cpu")
