@@ -51,6 +51,17 @@ the public entry points:
     over every sub-segment; line segments, a segment soup and motion-blur
     curves on the torch-op walks against brute forces; the
     `hair_geometry` and `curve_geometry` tutorials;
+  * the paper's demo (phase 23): `viewer -i tests/golden/bomberman.obj
+    --compress.leaf --subdLvl 6 --compLvl 3 --size 1280 768` through
+    `viewer.make_app().run` (kernel `cbvh`, smooth limit-surface normals
+    through `Scene.interpolate_normal`), its commit, device bytes and
+    frame split into B4, compressed_hits, the smooth-normal pass, shading
+    and unsort; the 160x96 frame against the reference binaries' render
+    (2.5 %), B4 against its plain version on its every ray, the normals
+    against the CPU, and `Scene.interpolate` (derivatives, attributes) on
+    2^20 random points; phase 24: the `subdivision_geometry` (B2, analytic
+    patch derivatives; its 128x128 frame against the reference's render,
+    0.2 %) and `interpolation` (B2 and B4) tutorials at 512x512;
   * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
     all ten kernel entries against their plain versions, and 100,000
     rays from inside closed surfaces through B2, B6, B1, B4 and B5, none
@@ -96,7 +107,8 @@ from embree_tpu_torch.core import nvcc  # noqa: E402
 from embree_tpu_torch.core.profile import global_profiler  # noqa: E402
 from embree_tpu_torch.core.rayhit import Rays  # noqa: E402
 from embree_tpu_torch.diff.hit import hit_t_grad, reeval_hit_verts  # noqa: E402
-from embree_tpu_torch.render.camera import Camera, primary_rays  # noqa: E402
+from embree_tpu_torch.render.camera import (  # noqa: E402
+    Camera, pixel_coords, pixel_morton_order_device, primary_rays)
 from embree_tpu_torch.render.image import read_pfm  # noqa: E402
 from embree_tpu_torch.render.noise import fbm_displacement  # noqa: E402
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
@@ -107,7 +119,19 @@ from embree_tpu_torch.render.tutorials import (  # noqa: E402
     triangle_geometry as tutorial)
 from embree_tpu_torch.scene.prims import prim_bounds_np  # noqa: E402
 from embree_tpu_torch.scene.scene import _scene_bytes  # noqa: E402
-from embree_tpu_torch.core.math import rows_times  # noqa: E402
+from embree_tpu_torch.core.math import normalize, rows_times  # noqa: E402
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    interpolation as interp_tutorial)
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    subdivision_geometry as subdiv_tutorial)
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    viewer as viewer_tutorial)
+from embree_tpu_torch.scene.scene import scene_intersect  # noqa: E402
+from embree_tpu_torch.scene.subdiv_accel import (  # noqa: E402
+    SubdivEval, fused_normal_table, sample_normal_fused)
+from embree_tpu_torch.subdiv.patches import (  # noqa: E402
+    eval_patch_table, patch_tensors)
+from embree_tpu_torch.traverse.cbvh import compressed_hits  # noqa: E402
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     curve_geometry as curve_tutorial)
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
@@ -204,6 +228,19 @@ SOUP_RAYS = 1 << 14        # rays of the segment-soup and MB-curve scenes
 # ribbon_hit (5 dd, 6 differences, 2 x 6 depths, 12 projections, 3 ab,
 # 6 denom, 8 s, 6 closest point, 5 dist2, 1 + 3 + 3 radius and depth,
 # 4 compares); a node's child slab tests as for B2
+# the paper's demo (build/bomberman.ecs, test_ref_golden.py:72-84)
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+DEMO_OBJ = os.path.join(GOLDEN_DIR, "bomberman.obj")
+DEMO_LEVELS = (6, 3)
+DEMO_SIZE = (1280, 768)
+DEMO_GOLDEN_SIZE = (160, 96)
+DEMO_CAMERA = dict(from_=(18.21240425, 20.05745888, 15.46878433),
+                   to=(0.0, 0.0, 0.0), fov=90.0)
+DEMO_FRAMES = 3            # timed frames of the viewer's benchmark
+DEMO_SEED = 0xB0B
+DEMO_INTERP_LOG2 = 20      # random (face, u, v) of Scene.interpolate
+TUTORIAL_SIZE = 512        # the phase 24 tutorials' frames
 CONE_FLOPS = 87
 RIBBON_FLOPS = 74
 # a ray rotated into a cluster's frame: origin and direction, 9 products
@@ -1771,6 +1808,269 @@ def ptxas_summary(text, names):
     return out
 
 
+def viewer_rays(camera, w, h, device, perm=None):
+    """The viewer's primary rays (its `_trace`) as a flat batch, in the
+    order of `perm` (image-row order without it)."""
+    vx, vy, vz, p = camera.ispc_camera(w, h, device=device)
+    x, y = pixel_coords(w, h, perm, device=device)
+    d = normalize(x[..., None] * vx + y[..., None] * vy + vz)
+    n = d.shape[0]
+    return Rays(p.broadcast_to(d.shape).contiguous(), d,
+                torch.zeros(n, dtype=torch.float32, device=device),
+                torch.full((n,), math.inf, dtype=torch.float32,
+                           device=device))
+
+
+def golden_fraction(img, name):
+    """Share of the pixels of `img` more than 1.5/255 off the reference
+    binaries' render `name`, after the reference's RGBA8 quantization
+    (tests/test_ref_golden.py's comparison)."""
+    ref = read_pfm(os.path.join(GOLDEN_DIR, name))
+    q = np.floor(255.0 * np.clip(img.cpu().numpy(), 0.0, 1.0)) / 255.0
+    if q.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {q.shape}, expected {ref.shape}")
+    return float((np.abs(q - ref).max(-1) > 1.5 / 255).mean())
+
+
+def tensor_bytes(*tensors):
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def demo_phase(device, prof):
+    """Phase 23: the paper's demo through `viewer.make_app().run`, its
+    commit, device bytes, the frame split into its parts, B4 against its
+    plain version, smooth normals against the CPU, the golden, and the
+    times of `Scene.interpolate`. Returns (B4's worst |t| error, B4's
+    plain ms)."""
+    w, h = DEMO_SIZE
+    app = viewer_tutorial.make_app()
+    build = app.build_scene
+    kept = {}
+
+    def build_and_keep(a):
+        t0 = time.perf_counter()
+        kept["state"] = build(a)
+        torch.cuda.synchronize()
+        kept["build_s"] = time.perf_counter() - t0
+        return kept["state"]
+
+    app.build_scene = build_and_keep
+    prof.samples.clear()
+    out = io.StringIO()
+    with Launches() as lc, contextlib.redirect_stdout(out):
+        rc = app.run(["-i", DEMO_OBJ, "--compress.leaf",
+                      "--subdLvl", str(DEMO_LEVELS[0]),
+                      "--compLvl", str(DEMO_LEVELS[1]),
+                      "--size", str(w), str(h),
+                      "--vp", *map(str, DEMO_CAMERA["from_"]),
+                      "--vi", "0", "0", "0", "--fov", "90",
+                      "--benchmark", "1", str(DEMO_FRAMES),
+                      "-rtcore", "ignore_config_files=1"])
+        torch.cuda.synchronize()
+    print(out.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"viewer returned {rc}")
+    bench = dict(line.split() for line in out.getvalue().splitlines()
+                 if line.startswith("BENCHMARK_RENDER_"))
+    frames = DEMO_FRAMES + 2
+    lc.expect(f"viewer: {frames} frames", 0, 0)
+    lc.expect_cbvh(f"viewer: {frames} frames", frames, 0)
+    state = kept["state"]
+    scene, cs = state["scene"], state["cscene"]
+    pc = cs.compressed_kernel
+    (gid, g), = scene.geometries.items()
+    log(f"  commit() {kept['build_s']:.1f} s (the whole build_scene): "
+        + ", ".join(f"{k} {prof.stats(k)['avg']:.2f} s"
+                    for k in prof.samples))
+    ev = scene.subdiv_eval[gid]
+    table = scene._attr_cache[("nrm_fused", gid)]
+    cells = pc.num_tiles * (1 << pc.comp_level) ** 2
+    log(f"  {g.num_prims} faces, {pc.num_tiles} tiles of "
+        f"{(1 << pc.comp_level) ** 2} cells = {cells} cells, top BVH4 of "
+        f"{pc.num_nodes} nodes in {pc.top_depth} levels; on the card: the "
+        f"compact accel {pc.device_bytes / 1e6:.1f} MB, the committed scene "
+        f"{_scene_bytes(cs) / 1e6:.1f} MB, the SubdivEval "
+        f"{tensor_bytes(*ev[:5]) / 1e6:.1f} MB, the fused normal table "
+        f"{tensor_bytes(table) / 1e6:.1f} MB")
+    if cs.compressed.tiles.space is not None or ev.verts.device != device:
+        raise AssertionError("the demo's committed scene is not compact or "
+                             "its SubdivEval is not on the card")
+    cam = Camera(**DEMO_CAMERA)
+    # the frame, and each part of it on its own, CUDA events
+    perm, inv = pixel_morton_order_device(w, h, device)
+    rays = viewer_rays(cam, w, h, device, perm)
+    args = (cs, state["materials"], state["geom_mat"], state["textures"],
+            state["kd_tex"], state["tri_uv"], state["prim_base"],
+            *cam.ispc_camera(w, h, device=device), perm)
+    kd, valid, d, gidh, prim, u, v, ng = viewer_tutorial._trace(
+        *args, width=w, height=h)
+    st = ck.intersect_compressed_kernel(pc, rays, t_in=rays.tfar)
+    nrm = viewer_tutorial.shade_normals(scene, valid, gidh, prim, u, v, ng)
+    flat_img = viewer_tutorial._shade(kd, valid, d, nrm)
+    parts = {
+        "frame (render_frame)": lambda: viewer_tutorial.render_frame(
+            state, cam, (w, h)),
+        "trace + materials (_trace)": lambda: viewer_tutorial._trace(
+            *args, width=w, height=h),
+        "B4 (cbvh kernel)": lambda: ck.intersect_compressed_kernel(
+            pc, rays, t_in=rays.tfar),
+        "compressed_hits": lambda: compressed_hits(cs.compressed, rays, st),
+        "smooth normals (interpolate_normal)":
+            lambda: viewer_tutorial.shade_normals(scene, valid, gidh, prim,
+                                                  u, v, ng),
+        "shading": lambda: viewer_tutorial._shade(kd, valid, d, nrm),
+        "unsort": lambda: flat_img[inv],
+    }
+    ms = {k: time_ms(f) for k, f in parts.items()}
+    frame_ms = ms["frame (render_frame)"]
+    log(f"  {w}x{h} frame, {int(valid.sum())} of {w * h} rays hit: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; {1e3 / frame_ms:.1f} frames/s by CUDA events, "
+        f"BENCHMARK_RENDER_AVG {float(bench['BENCHMARK_RENDER_AVG']):.1f} "
+        f"frames/s (host clock); B4 {w * h / ms['B4 (cbvh kernel)'] / 1e3:.1f}"
+        " Mray/s")
+    # the golden frame, B4 against its plain version on its every ray and
+    # on 2^16 rays spread over the big frame (every k-th in Morton order)
+    gw, gh = DEMO_GOLDEN_SIZE
+    img, _ = viewer_tutorial.render_frame(state, cam, (gw, gh))
+    frac = golden_fraction(img, "ref_bomberman_160.pfm")
+    if frac > 0.025:
+        raise AssertionError(f"bomberman: {frac:.4%} of the pixels differ "
+                             "from the reference render (budget 2.5 %)")
+    log(f"  {gw}x{gh} frame: {frac:.4%} of the pixels differ from "
+        "ref_bomberman_160.pfm by more than 1.5/255 (budget 2.5 %)")
+    grays = viewer_rays(cam, gw, gh, device)
+    err, plain_ms, _, _ = compare_cbvh_plain(
+        pc, grays, f"bomberman {gw}x{gh}, every ray")
+    step = max(1, (w * h) >> 16)
+    head = Rays(*(a[::step][:1 << 16].contiguous() for a in rays))
+    e2, _, _, _ = compare_cbvh_plain(
+        pc, head, f"bomberman {w}x{h}, 2^16 rays (every {step}th in Morton "
+        "order)")
+    # smooth normals on the card against the port on the CPU
+    hg = scene_intersect(cs, grays, coherent=True)
+    m = hg.valid
+    n_card = scene.interpolate_normal(gid, hg.prim_id[m], hg.u[m], hg.v[m])
+    ev_cpu = SubdivEval(*(a.cpu() for a in ev[:5]), ev.grid_res)
+    n_cpu = sample_normal_fused(fused_normal_table(ev_cpu), ev_cpu,
+                                hg.prim_id[m].cpu().clamp_min(0),
+                                hg.u[m].cpu(), hg.v[m].cpu())
+    nerr = float((n_card.cpu() - n_cpu).abs().max())
+    if nerr > 1e-6:
+        raise AssertionError(f"interpolate_normal: card and CPU {nerr:g} "
+                             "apart")
+    log(f"  interpolate_normal at the {int(m.sum())} hits of the {gw}x{gh} "
+        f"frame: card and CPU within {nerr:.3g} (tolerance 1e-6)")
+    # Scene.interpolate on 2^20 random (face, u, v)
+    rng = np.random.default_rng(DEMO_SEED)
+    nq = 1 << DEMO_INTERP_LOG2
+    face = torch.from_numpy(rng.integers(0, g.num_prims, nq)).to(device)
+    uq = torch.from_numpy(rng.random(nq, np.float32)).to(device)
+    vq = torch.from_numpy(rng.random(nq, np.float32)).to(device)
+    t0 = time.perf_counter()
+    scene.interpolate(gid, face[:1], uq[:1], vq[:1], derivatives=True)
+    pt_s = time.perf_counter() - t0
+    pt, verts_iso = scene._patch_tables[gid]
+    ptab = patch_tensors(pt, device)
+    dv = scene.interpolate(gid, face, uq, vq, derivatives=True)
+    if not all(torch.isfinite(x).all() for x in dv.values()):
+        raise AssertionError("interpolate(derivatives=True): not finite")
+    k = 4096
+    dv_cpu = eval_patch_table(pt, verts_iso.cpu(), face[:k].cpu(),
+                              uq[:k].cpu(), vq[:k].cpu())
+    derr = {key: float((dv[key][:k].cpu() - x).abs().max()
+                       / x.abs().max().clamp_min(1e-30))
+            for key, x in dv_cpu.items()}
+    # second derivatives and Ng at 5e-4: on points next to an EV they are
+    # ill-conditioned in float32 (up to 2.4e-4 between card and CPU)
+    dtol = {"P": 1e-5, "dPdu": 1e-4, "dPdv": 1e-4}
+    if any(e > dtol.get(key, 5e-4) for key, e in derr.items()):
+        raise AssertionError(f"interpolate(derivatives=True): card and CPU "
+                             f"apart {derr}")
+    g.vertex_attributes.append(
+        rng.random((np.asarray(g.vertices).shape[0], 3), np.float32))
+    scene.interpolate(gid, face[:1], uq[:1], vq[:1], slot=0)
+    t_d = time_ms(lambda: scene.interpolate(gid, face, uq, vq,
+                                            derivatives=True), reps=3)
+    t_s = time_ms(lambda: scene.interpolate(gid, face, uq, vq, slot=0))
+    t_n = time_ms(lambda: scene.interpolate(gid, face, uq, vq))
+    log(f"  Scene.interpolate on 2^{DEMO_INTERP_LOG2} random (face, u, v): "
+        f"derivatives=True {t_d:.3f} ms ({len(pt.ladders)} ladders of "
+        f"{pt.kind.shape[0]} iso quads, "
+        f"{tensor_bytes(*[x for x in ptab.lad.values()]) / 1e6:.1f} MB of "
+        f"ladder tables; the patch table built in {pt_s:.1f} s on the host), "
+        f"slot=0 {t_s:.3f} ms, (P, N) {t_n:.3f} ms; the first 4096 against "
+        "the CPU: " + ", ".join(f"{a} {b:.2g}" for a, b in derr.items())
+        + " of the largest entry (limits P 1e-5, dPdu and dPdv 1e-4, the "
+        "rest 5e-4)")
+    return max(err, e2), plain_ms
+
+
+def tutorial_phase(device):
+    """Phase 24: the subdivision_geometry and interpolation tutorials at
+    512x512, their goldens or CPU frames, and B2 and B4 against their
+    plain versions on each tutorial's primary rays. Returns (B2's worst
+    error, B4's worst error)."""
+    pk_err = cb_err = 0.0
+    for name, mod, argv, packet, cbvh in (
+            ("subdivision_geometry", subdiv_tutorial,
+             ["--subdLvl", "6"], 2, 0),
+            ("interpolation", interp_tutorial, [], 1, 1)):
+        app = mod.make_app()
+        app.default_size = (TUTORIAL_SIZE, TUTORIAL_SIZE)
+        out = io.StringIO()
+        with Launches() as lc, contextlib.redirect_stdout(out):
+            rc = app.run(argv + ["--benchmark", "1", "3",
+                                 "-rtcore", "ignore_config_files=1"])
+            torch.cuda.synchronize()
+        print(out.getvalue(), end="")
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+        lc.expect(f"{name}: 5 frames", 0, 5 * packet)
+        lc.expect_cbvh(f"{name}: 5 frames", 5 * cbvh, 0)
+        fps = float(dict(line.split() for line in out.getvalue().splitlines()
+                         if line.startswith("BENCHMARK_RENDER_"))
+                    ["BENCHMARK_RENDER_AVG"])
+        state = app.build_scene(app)
+        cs = state["cscene"]
+        rays = viewer_rays(app.camera, TUTORIAL_SIZE, TUTORIAL_SIZE, device)
+        for occl in (False, True):
+            e, _ = compare_packet_plain(
+                cs.packet, rays, occl, False,
+                f"{name} {TUTORIAL_SIZE}x{TUTORIAL_SIZE} primary rays, "
+                f"{'occluded' if occl else 'closest'}")
+            pk_err = max(pk_err, e)
+        if cs.compressed_kernel is not None:
+            e, _, _, _ = compare_cbvh_plain(
+                cs.compressed_kernel, rays,
+                f"{name} {TUTORIAL_SIZE}x{TUTORIAL_SIZE} primary rays")
+            cb_err = max(cb_err, e)
+        if name == "subdivision_geometry":
+            # the app's scene: level 6, eager, as the reference's render
+            img, _ = mod.render_frame(state, Camera(from_=(1.5, 1.5, -1.5),
+                                                 to=(0, 0, 0)), (128, 128))
+            frac = golden_fraction(img, "ref_subdivision_128.pfm")
+            if frac > 0.002:
+                raise AssertionError(f"{name}: {frac:.4%} of the pixels "
+                                     "differ from the reference render")
+            what = (f"128x128: {frac:.4%} of the pixels differ from "
+                    "ref_subdivision_128.pfm (budget 0.2 %)")
+        else:
+            imgs = [mod.render_frame(mod.build_scene(rtcore=rt), app.camera,
+                                     (64, 64))[0].cpu().numpy()
+                    for rt in ("ignore_config_files=1", "device=cpu")]
+            bad = float((np.abs(imgs[0] - imgs[1]).max(-1) > 1.5 / 255)
+                        .mean())
+            if bad > 0.005 or imgs[0].max() < 0.2:
+                raise AssertionError(f"{name}: {bad:.4%} of the pixels "
+                                     "differ from the CPU render")
+            what = (f"64x64: {bad:.4%} of the pixels differ from this "
+                    "package's CPU render (budget 0.5 %)")
+        log(f"  {name} at {TUTORIAL_SIZE}x{TUTORIAL_SIZE}: {fps:.1f} frames/s "
+            f"(BENCHMARK_RENDER_AVG, host clock); {what}")
+    return pk_err, cb_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2819,6 +3119,16 @@ def main() -> int:
         f"main-hair {hm_plain_ms:.0f} + {hmo_plain_ms:.0f} ms, "
         f"hairball-flat {hb_plain_ms:.0f} + {hbo_plain_ms:.0f} ms")
 
+    # -- 23. the paper's demo: the viewer on bomberman.obj -------------------
+    log(f"[23] the paper's demo: viewer -i bomberman.obj --compress.leaf "
+        f"--subdLvl {DEMO_LEVELS[0]} --compLvl {DEMO_LEVELS[1]} --size "
+        f"{DEMO_SIZE[0]} {DEMO_SIZE[1]}")
+    demo_err, demo_plain_ms = demo_phase(dev.device, prof)
+
+    # -- 24. the subdivision_geometry and interpolation tutorials -------------
+    log("[24] subdivision_geometry and interpolation tutorials")
+    tut_pk_err, tut_cb_err = tutorial_phase(dev.device)
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
     # rays (the counting plain version). packet: ms and bound_ms belong to
@@ -2830,7 +3140,9 @@ def main() -> int:
     # from the plain version's. mb and mb_occluded: ms and
     # bound_ms belong to the 2^21 incoherent rays at random times on
     # main-mb, plain_ms to their first 2^16 rays; mb_occluded's
-    # max_abs_err counts the rays whose answer differs. hair_cone(_occluded)
+    # max_abs_err counts the rays whose answer differs; cbvh's launches and
+    # error include the demo (phase 23) and the interpolation tutorial,
+    # packet's the two tutorials of phase 24. hair_cone(_occluded)
     # and hair_ribbon(_occluded): ms and bound_ms belong to the one launch
     # over every cluster of main-hair (cone) and hairball-flat (ribbon) for
     # the 2^21 incoherent rays, plain_ms to their first 2^16 rays. Every
@@ -2852,7 +3164,7 @@ def main() -> int:
         "replaces": "embree_tpu/traverse/pallas_packet.py:261",
         "launches": Launches.totals["packet"],
         "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
-                           lane_err["packet"]),
+                           lane_err["packet"], tut_pk_err),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
         "plain_rays": n,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],
@@ -2864,7 +3176,7 @@ def main() -> int:
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:175",
         "launches": Launches.totals["cbvh"],
         "max_abs_err": max(cb_small_err, cb_full_err, lane_err["cbvh"],
-                           wt_err["cbvh"]),
+                           wt_err["cbvh"], demo_err, tut_cb_err),
         "ms": cb_inc["closest"]["ms"], "plain_ms": cb_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["closest"]["bound"]["bound_ms"],

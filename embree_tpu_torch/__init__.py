@@ -14,9 +14,13 @@ motion blur: triangle, quad and subdivision meshes with N >= 2 vertex
 timesteps, closest hit at a time a ray through the MB kernel; curves:
 line segments, round and flat Bezier and B-spline hair in strand-aligned
 OBB clusters through the hair kernel, motion-blur Bezier curves; the
-differentiable hit (`diff.hit`); the `triangle_geometry`,
-`displacement_geometry`, `motion_blur_geometry`, `hair_geometry` and
-`curve_geometry` tutorials (`render.tutorials`).
+differentiable hit (`diff.hit`); rtcInterpolate (`Scene.interpolate`,
+`interpolate_normal`: positions, normals, vertex attributes and the
+analytic limit-surface derivatives of subdiv/patches.py); the OBJ/MTL
+loader, textures and the material table; the `triangle_geometry`,
+`displacement_geometry`, `motion_blur_geometry`, `hair_geometry`,
+`curve_geometry`, `viewer`, `interpolation` and `subdivision_geometry`
+tutorials (`render.tutorials`).
 
 Quick start::
 

@@ -23,9 +23,9 @@ CUDA device unless it says `device=cpu`. The fork's `--compress.*` flags
 end up as `args.subdiv_mode`, the `subdiv_accel` value a tutorial with
 subdivision surfaces commits under (`--compress.ref`, also spelled
 `--compress.full`, is the full-precision reference mode). `--subdLvl`
-and `--compLvl` are parsed and clamped for the tutorials that read them
-(`viewer`, `subdivision_geometry`: not ported yet);
-`displacement_geometry` fixes its own levels as the reference does.
+and `--compLvl` are parsed and clamped; `viewer` and
+`subdivision_geometry` commit at them, `displacement_geometry` fixes its
+own levels as the reference does.
 """
 from __future__ import annotations
 

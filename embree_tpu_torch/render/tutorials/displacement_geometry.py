@@ -95,10 +95,14 @@ def trace(cscene: CommittedScene, cam_vx, cam_vy, cam_vz, cam_p,
     hits = scene_intersect(cscene, rays, coherent=True)
 
     light_dir = normalize(torch.tensor([-1.0, -1.0, -1.0], device=dev))
-    hit_p = org + hits.t[..., None] * d
+    # a primary ray that missed sends a retired shadow ray (from the
+    # camera, tfar -inf) in place of one from an infinite origin, whose
+    # NaN slab tests would enter every node; its answer is not read
+    t = torch.where(hits.valid, hits.t, 0.0)
+    hit_p = org + t[..., None] * d
     shadow = Rays(hit_p, (-light_dir).broadcast_to(d.shape).contiguous(),
                   torch.full(n, 1e-3, dtype=torch.float32, device=dev),
-                  torch.full(n, math.inf, dtype=torch.float32, device=dev))
+                  torch.where(hits.valid, math.inf, -math.inf))
     occ = scene_occluded(cscene, shadow, coherent=True)
     out = (hits.valid, occ, hits.geom_id, hits.prim_id, hits.u, hits.v,
            hits.ng, d)

@@ -74,7 +74,8 @@ class SubdivMesh(Geometry):
     the subdivided vertices and their normals, replacing the reference's
     C displacement callback ABI (subdivpatch1base_eval.cpp:139-156); it
     runs on the host at commit. Per-edge tessellation levels
-    (`edge_levels`) are not ported yet: commit raises for them.
+    (`edge_levels`, one rate a face corner for the edge that starts
+    there) drive the eager tessellation with crack-free stitching.
     """
 
     def __init__(self, vertices, face_counts, face_indices,

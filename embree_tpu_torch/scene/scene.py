@@ -71,11 +71,17 @@ large incoherent batches (traverse/stream.py) before its packet kernel;
 on this card the sort costs more than it saves (PERF.md), so no path
 here sorts.
 
+`Scene.interpolate` (rtcInterpolate: positions, normals, vertex
+attributes, and the full derivative set through the analytic patches of
+subdiv/patches.py) and `interpolate_normal` (the smooth-normal fast
+path) answer on triangle, quad and subdivision meshes in torch ops on
+the scene's device.
+
 What needs a module which is not ported yet raises
 `RaytracerError(INVALID_OPERATION, "not ported yet: ...")`:
-BuildQuality.LOW / REFIT, per-edge tessellation levels, occlusion over
-motion-blur geometry (meshes and curves), and the geometry types other
-than the ten above (instances, user geometry).
+BuildQuality.LOW / REFIT, occlusion over motion-blur geometry (meshes
+and curves), and the geometry types other than the ten above
+(instances, user geometry).
 """
 from __future__ import annotations
 
@@ -95,8 +101,12 @@ from ..build.sah import BuildSettings, build_sah
 from ..build.treelets import TreeletScene, build_treelet_scene, choose_fan
 from ..core.device import Device, Error, RaytracerError
 from ..core.profile import global_profiler, profile_phase, trace
+from ..core.math import cross
 from ..core.rayhit import Hits, Rays, miss_hits
-from ..subdiv.tessellate import tessellate_mesh_to_triangles
+from ..subdiv.core import evaluate_plan
+from ..subdiv.patches import build_patch_table, eval_patch_table
+from ..subdiv.tessellate import (tessellate_mesh_to_triangles,
+                                 tessellate_mesh_to_triangles_levels)
 from ..traverse.cbvh import (CompressedAccel, compressed_hits, ids_only,
                              intersect_compressed, occluded_compressed)
 from ..traverse.cbvh_kernel import (CompactCompressed,
@@ -117,7 +127,10 @@ from .curves import (BezierCurves, BezierCurvesMB, BSplineCurves,
                      LineSegments, make_segment_intersector, segment_bounds)
 from .geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
                        SubdivMeshMB, TriangleMesh, TriangleMeshMB)
-from .subdiv_accel import build_compressed_accel
+from .subdiv_accel import (_unit, build_compressed_accel,
+                           build_subdiv_geometry, fused_normal_table,
+                           grid_sample, interpolate_subdiv,
+                           sample_normal_fused)
 from .prims import TrianglePrims, empty_triangle_prims, prim_bounds_np
 
 # Treelet path thresholds (the JAX package's): build the treelet scene
@@ -242,6 +255,14 @@ def _as_np_f32(a):
     return np.asarray(a, np.float32)
 
 
+def _mesh_point(c, uu, vv):
+    """The barycentric (3 corners) or bilinear (4) sum at (u, v)."""
+    if len(c) == 3:
+        return (1.0 - uu - vv) * c[0] + uu * c[1] + vv * c[2]
+    return ((1 - uu) * (1 - vv) * c[0] + uu * (1 - vv) * c[1]
+            + uu * vv * c[2] + (1 - uu) * vv * c[3])
+
+
 def _tri_soup(v, idx):
     """(v0, v1, v2, prim) of a triangle mesh's vertices `v`."""
     return (v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]],
@@ -275,6 +296,10 @@ class Scene:
         self.build_time_s: float = 0.0
         self.subdiv_eval = {}  # gid -> SubdivEval (compressed mode)
         self.subdiv_plan = {}  # gid -> SubdivisionPlan
+        # (gid, slot) -> a SubdivMesh's refined attribute tensor, or a
+        # mesh's device (values, indices); ("nrm_fused", gid) -> table
+        self._attr_cache = {}
+        self._patch_tables = {}  # gid -> (PatchTable, verts_iso tensor)
         # intersection-filter callback (rtcSetGeometryIntersectFilterFunction
         # analog, scene-level): fn(org, dir, t, u, v, ng, geom, prim) -> keep,
         # on tensors of the scene's device
@@ -348,16 +373,24 @@ class Scene:
                                     else np.zeros(n, np.int32))
                     tri_uv3.append(_ident_uv3(n))
                 elif isinstance(g, SubdivMesh):
-                    if g.edge_levels is not None:
-                        raise _not_ported("per-edge tessellation levels")
                     if self._subdiv_mode() is not None:
                         subdiv_compressed.append((gid, g))
                         continue
-                    # stock path: eager uniform tessellation to triangles
-                    # (BVHNSubdivPatch1EagerBuilderSAH analog)
+                    # stock path: eager tessellation to triangles
+                    # (BVHNSubdivPatch1EagerBuilderSAH analog), uniform or
+                    # at per-edge rates with crack-free stitching
+                    # (RTC_BUFFER_TYPE_LEVEL, tessellation.h:77)
                     with profile_phase("scene.tessellate"):
-                        v0, v1, v2, prim, uv3 = tessellate_mesh_to_triangles(
-                            g, self.subdivision_level, with_uv=True)
+                        if g.edge_levels is not None:
+                            v0, v1, v2, prim, uv3 = \
+                                tessellate_mesh_to_triangles_levels(
+                                    g, g.edge_levels,
+                                    max_level=self.subdivision_level,
+                                    with_uv=True)
+                        else:
+                            v0, v1, v2, prim, uv3 = \
+                                tessellate_mesh_to_triangles(
+                                    g, self.subdivision_level, with_uv=True)
                     tri_v0.append(v0)
                     tri_v1.append(v1)
                     tri_v2.append(v2)
@@ -441,6 +474,8 @@ class Scene:
         compressed_kernel = None
         self.subdiv_eval = {}
         self.subdiv_plan = {}
+        self._attr_cache = {}
+        self._patch_tables = {}
         if subdiv_compressed:
             flavor = self.device.state.compressed_node
             with profile_phase("scene.build_compressed"):
@@ -848,14 +883,140 @@ class Scene:
 
     def interpolate(self, geom_id: int, prim_id, u, v, slot=None,
                     derivatives: bool = False):
-        """rtcInterpolate analog (the JAX package's Scene.interpolate):
-        not ported yet, raises."""
-        raise _not_ported("Scene.interpolate")
+        """rtcInterpolate analog: position + smooth normal at (prim, u,
+        v) (smooth shading of compressed hits, viewer_device.cpp:284-295;
+        vertex-attribute interpolation per interpolation_device.cpp).
+        `prim_id`, `u`, `v` are tensors on the scene's device (or arrays),
+        one batch shape; the results are tensors on the scene's device.
+
+        slot=None interpolates positions and returns (P, N); slot=k
+        interpolates vertex_attributes[k] and returns the attribute value
+        (for subdiv, smoothed through the same subdivision stencils the
+        limit surface uses).
+
+        derivatives=True returns the full rtcInterpolate derivative set
+        (rtcore_geometry.h:234-338) as a dict {P, dPdu, dPdv, ddPdudu,
+        ddPdvdv, ddPdudv, Ng}; for subdiv geometries these are ANALYTIC
+        limit-surface derivatives (subdiv/patches.py). For quads
+        ddPdudv is returned as zero, as the JAX package does, although
+        the bilinear patch's is p0 - p1 + p2 - p3."""
+        g = self.geometries.get(geom_id)
+        dev = self.device.device
+        prim_id = torch.as_tensor(prim_id, device=dev).long()
+        u = torch.as_tensor(u, device=dev).to(torch.float32)
+        v = torch.as_tensor(v, device=dev).to(torch.float32)
+        if derivatives:
+            return self._interpolate_derivs(g, geom_id, prim_id, u, v)
+        if isinstance(g, (TriangleMesh, QuadMesh)):
+            c = self._mesh_corners(g, geom_id, slot, prim_id)
+            P = _mesh_point(c, u[..., None], v[..., None])
+            if slot is not None:
+                return P
+            return P, _unit(cross(c[1] - c[0], c[-1] - c[0]))
+        if not isinstance(g, SubdivMesh):
+            self.device.raise_error(Error.INVALID_ARGUMENT,
+                                    f"geom {geom_id} not interpolatable")
+        ev = self._subdiv_eval(g, geom_id)
+        if slot is None:
+            return interpolate_subdiv(ev, prim_id, u, v)
+        key = (geom_id, slot)
+        refined = self._attr_cache.get(key)
+        if refined is None:
+            refined = torch.from_numpy(evaluate_plan(
+                self.subdiv_plan[geom_id],
+                _as_np_f32(g.vertex_attributes[slot]))).to(dev)
+            self._attr_cache[key] = refined
+        return grid_sample(ev, prim_id, u, v, refined)
 
     def interpolate_normal(self, geom_id: int, prim_id, u, v):
-        """The smooth-normal fast path of `interpolate`: not ported yet,
-        raises."""
-        raise _not_ported("Scene.interpolate_normal")
+        """Smooth-normal-only interpolate fast path (the viewer's
+        per-frame need, viewer_device.cpp:284-295): samples a FUSED normal
+        table (subdiv_accel.fused_normal_table), built once a geometry and
+        kept, with one row gather per bilinear corner. Falls back to
+        interpolate() for non-subdiv geometry."""
+        g = self.geometries.get(geom_id)
+        if not isinstance(g, SubdivMesh):
+            return self.interpolate(geom_id, prim_id, u, v)[1]
+        dev = self.device.device
+        ev = self._subdiv_eval(g, geom_id)
+        key = ("nrm_fused", geom_id)
+        table = self._attr_cache.get(key)
+        if table is None:
+            table = fused_normal_table(ev)
+            self._attr_cache[key] = table
+        return sample_normal_fused(
+            table, ev, torch.as_tensor(prim_id, device=dev).clamp_min(0),
+            torch.as_tensor(u, device=dev).to(torch.float32),
+            torch.as_tensor(v, device=dev).to(torch.float32))
+
+    def _mesh_corners(self, g, geom_id, slot, prim_id):
+        """Of a triangle or quad mesh, the values of its vertices (slot
+        None) or of vertex_attributes[slot] at the 3 or 4 corners of each
+        prim, as f32 tensors on the scene's device. The device copies of
+        the values and the indices are kept in `_attr_cache` until the
+        next commit."""
+        key = (geom_id, slot)
+        ent = self._attr_cache.get(key)
+        if ent is None:
+            dev = self.device.device
+            a = g.vertices if slot is None else g.vertex_attributes[slot]
+            ent = (torch.from_numpy(_as_np_f32(a)).to(dev),
+                   torch.from_numpy(np.asarray(g.indices, np.int64)).to(dev))
+            self._attr_cache[key] = ent
+        arr, idx = ent
+        idx = idx[prim_id]
+        return [arr[idx[..., k]] for k in range(idx.shape[-1])]
+
+    def _subdiv_eval(self, g, geom_id):
+        """The SubdivEval of a SubdivMesh: the compressed accel's, or for
+        the stock eager path one built now and kept (the rtcInterpolate
+        eval-tree path the tessellation cache backs in the reference)."""
+        ev = self.subdiv_eval.get(geom_id)
+        if ev is None:
+            plan, _vd, _vu, _grids, ev = build_subdiv_geometry(
+                g, self.subdivision_level, self.device.device)
+            self.subdiv_eval[geom_id] = ev
+            self.subdiv_plan[geom_id] = plan
+        return ev
+
+    def _interpolate_derivs(self, g, geom_id, prim_id, u, v):
+        """Full-derivative rtcInterpolate (rtcore_geometry.h:234-338)."""
+        if isinstance(g, (TriangleMesh, QuadMesh)):
+            c = self._mesh_corners(g, geom_id, None, prim_id)
+            uu, vv = u[..., None], v[..., None]
+            P = _mesh_point(c, uu, vv)
+            if len(c) == 3:
+                du, dv = c[1] - c[0], c[2] - c[0]
+            else:
+                du = (1 - vv) * (c[1] - c[0]) + vv * (c[2] - c[3])
+                dv = (1 - uu) * (c[3] - c[0]) + uu * (c[2] - c[1])
+            z = torch.zeros_like(P)
+            return {"P": P, "dPdu": du, "dPdv": dv, "ddPdudu": z,
+                    "ddPdvdv": z, "ddPdudv": z,
+                    "Ng": _unit(cross(du, dv))}
+        if not isinstance(g, SubdivMesh):
+            self.device.raise_error(Error.INVALID_ARGUMENT,
+                                    f"geom {geom_id} not interpolatable")
+        pt, verts_iso = self._patch_table(g, geom_id)
+        return eval_patch_table(pt, verts_iso, prim_id, u, v)
+
+    def _patch_table(self, g, geom_id):
+        """Lazily build (and cache) the analytic patch table + iso-level
+        control vertices of a SubdivMesh."""
+        ent = self._patch_tables.get(geom_id)
+        if ent is None:
+            pt = build_patch_table(
+                g.face_counts, g.face_indices,
+                int(np.asarray(g.vertices).shape[0]),
+                edge_creases=g.edge_creases,
+                edge_crease_weights=g.edge_crease_weights,
+                vertex_creases=g.vertex_creases,
+                vertex_crease_weights=g.vertex_crease_weights)
+            verts_iso = torch.from_numpy(evaluate_plan(
+                pt.plan, _as_np_f32(g.vertices))).to(self.device.device)
+            ent = (pt, verts_iso)
+            self._patch_tables[geom_id] = ent
+        return ent
 
     @property
     def bounds(self):

@@ -1,8 +1,8 @@
 """Uniform tessellation: subdivision plan -> patch grids / triangle soup.
 
-Host (numpy) copy of embree_tpu/subdiv/tessellate.py without the
-per-edge tessellation levels (`tessellate_mesh_to_triangles_levels`),
-which are not ported yet.
+Host (numpy) copy of embree_tpu/subdiv/tessellate.py: the same arrays
+for the same mesh, per-edge tessellation levels
+(`tessellate_mesh_to_triangles_levels`) included.
 
 The analog of the reference's evalGrid + grid leaves
 (subdivpatch1base_eval.cpp:78-160, grid_soa.h): every base face becomes
@@ -213,3 +213,152 @@ def tessellate_mesh_to_triangles(mesh, subdivision_level: int,
     # triangle split mirrors the vertex split: (q0,q1,q3) and (q2,q3,q1)
     uv3 = np.concatenate([cuv[:, [0, 1, 3]], cuv[:, [2, 3, 1]]])
     return out + (uv3,)
+
+
+def tessellate_mesh_to_triangles_levels(mesh, edge_levels,
+                                        max_level: int = 6,
+                                        with_uv: bool = False):
+    """Per-edge tessellation rates + crack-free stitching — the
+    RTC_BUFFER_TYPE_LEVEL path (rtcore_geometry.h LEVEL buffer;
+    tessellation.h:77 stitchUVGrid semantics).
+
+    Formulation: refine uniformly to the power-of-two level
+    covering the LARGEST requested rate, then per-face SUBSAMPLE the
+    shared fine grid at the face's own rate, and per-edge SNAP boundary
+    samples to the edge's (coarser) rate. Because every sample is an
+    index into the SHARED refined-vertex array — and two faces index the
+    same refined vertices along their common edge — stitched borders are
+    watertight EXACTLY (vertex-id equality), stronger than the
+    reference's float-uv snapping. Coarse-rate boundary rows simply
+    repeat vertex ids, yielding harmless degenerate triangles exactly
+    like stitchUVGrid's repeated uv samples.
+
+    edge_levels: per face-corner float rate for edge (v_k, v_{k+1}), the
+    LEVEL buffer layout. Quad faces get full per-edge treatment; n-gon
+    faces use their max corner rate uniformly (no inter-sub-patch
+    stitching yet). Rates clamp to [1, 2**max_level] powers of two.
+    """
+    from .cache import global_cache, plan_nbytes, topology_key
+
+    levels = np.maximum(np.asarray(edge_levels, np.float32), 1.0)
+    # power-of-two quantization (rates must nest for exact index math)
+    lg = np.clip(np.ceil(np.log2(levels)), 0, max_level).astype(np.int64)
+    L = max(1, int(lg.max()))
+
+    nv = int(np.asarray(mesh.vertices).shape[0])
+    key = topology_key(mesh.face_counts, mesh.face_indices, nv, L,
+                       mesh.edge_creases, mesh.edge_crease_weights,
+                       mesh.vertex_creases, mesh.vertex_crease_weights)
+    plan = global_cache().get_or_build(
+        ("plan", key),
+        lambda: plan_subdivision(
+            mesh.face_counts, mesh.face_indices, nv, L,
+            edge_creases=mesh.edge_creases,
+            edge_crease_weights=mesh.edge_crease_weights,
+            vertex_creases=mesh.vertex_creases,
+            vertex_crease_weights=mesh.vertex_crease_weights),
+        plan_nbytes)
+    verts = evaluate_plan(plan, np.asarray(mesh.vertices, np.float32))
+    verts = limit_project(plan, verts)
+    if mesh.displacement is not None:
+        normals = vertex_normals(verts, plan.final_quads)
+        verts = np.asarray(
+            mesh.displacement(verts, normals, None, None), np.float32)
+
+    pg = build_patch_grids(plan)
+    g = pg.grid_res                       # fine cells per quad-face side
+    counts = np.asarray(mesh.face_counts, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+
+    tri_v, tri_prim, tri_uv = [], [], []
+    # patch index of quad faces = pg arrays keyed by face
+    patch_start = {}
+    pi = 0
+    for f, c in enumerate(counts):
+        patch_start[f] = pi
+        pi += 1 if c == 4 else int(c)
+
+    for f, c in enumerate(counts):
+        e_rates = 1 << lg[starts[f]:starts[f] + c]       # per-edge rate
+        rf = int(min(1 << L, max(1, e_rates.max())))     # face rate
+        if c == 4:
+            p = patch_start[f]
+            step = g // rf
+            ii = np.arange(rf + 1) * step
+            iu = np.broadcast_to(ii[:, None], (rf + 1, rf + 1)).copy()
+            jv = np.broadcast_to(ii[None, :], (rf + 1, rf + 1)).copy()
+            # stitch each boundary row/col to its edge rate: snap the
+            # along-edge fine-grid index onto the edge-rate lattice.
+            # LEVEL layout: edge k runs corner k -> k+1; patch-uv corners
+            # c0=(0,0) c1=(1,0) c2=(1,1) c3=(0,1), so in (i=u, j=v) grid
+            # space: e0: j=0 (i varies), e1: i=g, e2: j=g, e3: i=0.
+            # Any monotone snap gives both sides the same boundary
+            # polyline over the shared edge-rate lattice (all rates are
+            # nested powers of two and grids share refined vertex ids),
+            # so stitching is EXACTLY watertight regardless of ties.
+            def snap(idx, rate):
+                cell = g // int(rate)
+                return (np.round(idx / cell) * cell).astype(np.int64)
+            if e_rates[0] < rf:
+                iu[:, 0] = snap(iu[:, 0], e_rates[0])
+            if e_rates[1] < rf:
+                jv[-1, :] = snap(jv[-1, :], e_rates[1])
+            if e_rates[2] < rf:
+                iu[:, -1] = snap(iu[:, -1], e_rates[2])
+            if e_rates[3] < rf:
+                jv[0, :] = snap(jv[0, :], e_rates[3])
+            sub = pg.grids[p][iu, jv]
+            uvg = np.stack([iu / g, jv / g], axis=-1).astype(np.float32)
+        else:
+            # n-gon: uniform face rate on each sub-patch (half-res grids)
+            gs = g // 2
+            step = max(1, gs // min(rf, gs))
+            ii = np.arange(0, gs + 1, step)
+            subs, uvs = [], []
+            for sp in range(int(c)):
+                grid = pg.grids[patch_start[f] + sp][:gs + 1, :gs + 1]
+                subs.append(grid[np.ix_(ii, ii)])
+                uvg = np.stack(np.meshgrid(ii / gs, ii / gs,
+                                           indexing="ij"),
+                               axis=-1).astype(np.float32)
+                uvs.append(uvg)
+            for grid, uvg in zip(subs, uvs):
+                q00 = grid[:-1, :-1].ravel()
+                q10 = grid[1:, :-1].ravel()
+                q11 = grid[1:, 1:].ravel()
+                q01 = grid[:-1, 1:].ravel()
+                u00 = uvg[:-1, :-1].reshape(-1, 2)
+                u10 = uvg[1:, :-1].reshape(-1, 2)
+                u11 = uvg[1:, 1:].reshape(-1, 2)
+                u01 = uvg[:-1, 1:].reshape(-1, 2)
+                tri_v.append(np.stack([q00, q10, q01], 1))
+                tri_v.append(np.stack([q11, q01, q10], 1))
+                tri_uv.append(np.stack([u00, u10, u01], 1))
+                tri_uv.append(np.stack([u11, u01, u10], 1))
+                n2 = 2 * q00.shape[0]
+                tri_prim.append(np.full(n2, f, np.int64))
+            continue
+        q00 = sub[:-1, :-1].ravel()
+        q10 = sub[1:, :-1].ravel()
+        q11 = sub[1:, 1:].ravel()
+        q01 = sub[:-1, 1:].ravel()
+        u00 = uvg[:-1, :-1].reshape(-1, 2)
+        u10 = uvg[1:, :-1].reshape(-1, 2)
+        u11 = uvg[1:, 1:].reshape(-1, 2)
+        u01 = uvg[:-1, 1:].reshape(-1, 2)
+        tri_v.append(np.stack([q00, q10, q01], 1))
+        tri_v.append(np.stack([q11, q01, q10], 1))
+        tri_uv.append(np.stack([u00, u10, u01], 1))
+        tri_uv.append(np.stack([u11, u01, u10], 1))
+        tri_prim.append(np.full(2 * q00.shape[0], f, np.int64))
+
+    ids = np.concatenate(tri_v)                  # (T, 3) refined-vert ids
+    uv3 = np.concatenate(tri_uv).astype(np.float32)
+    prim = np.concatenate(tri_prim)
+    v0 = verts[ids[:, 0]].astype(np.float32)
+    v1 = verts[ids[:, 1]].astype(np.float32)
+    v2 = verts[ids[:, 2]].astype(np.float32)
+    out = (v0, v1, v2, prim)
+    if with_uv:
+        out = out + (uv3,)
+    return out

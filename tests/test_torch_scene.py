@@ -324,19 +324,25 @@ def test_unported_arguments_raise(rng):
 
 
 def test_interpolate_raises_not_ported():
-    """`Scene.interpolate` and `interpolate_normal` exist with the JAX
-    package's signatures and raise RaytracerError(INVALID_OPERATION,
-    "not ported yet: ...") until they are ported, not AttributeError."""
+    """`Scene.interpolate` and `interpolate_normal` are ported: on a
+    triangle mesh they answer (positions, unit normals, the derivative
+    set) on the scene's device; what still raises is a geometry that is
+    not interpolatable, with RaytracerError(INVALID_ARGUMENT), as in the
+    JAX package."""
     dev = ett.Device("ignore_config_files=1", device="cpu")
     sc = ett.Scene(dev)
     sc.attach(ett.TriangleMesh(*triangle_sphere((0, 0, 0), 1.0, 4)))
+    sc.attach(ett.LineSegments(np.array([[0, 0, 0, 0.1], [1, 0, 0, 0.1]],
+                                        np.float32), np.zeros(1, np.int32)))
     sc.commit()
     prim, u, v = torch.zeros(2, dtype=torch.int32), torch.zeros(2), \
         torch.zeros(2)
-    for fn in (lambda: sc.interpolate(0, prim, u, v),
-               lambda: sc.interpolate(0, prim, u, v, slot=0,
-                                      derivatives=True),
-               lambda: sc.interpolate_normal(0, prim, u, v)):
-        with pytest.raises(ett.RaytracerError, match="not ported yet") as e:
-            fn()
-        assert e.value.code == ett.Error.INVALID_OPERATION
+    P, N = sc.interpolate(0, prim, u, v)
+    assert P.shape == N.shape == (2, 3) and P.device.type == "cpu"
+    assert torch.allclose(torch.linalg.norm(N, dim=-1), torch.ones(2))
+    d = sc.interpolate(0, prim, u, v, derivatives=True)
+    assert torch.equal(d["P"], P) and torch.equal(d["Ng"], N)
+    assert torch.equal(sc.interpolate_normal(0, prim, u, v), N)
+    with pytest.raises(ett.RaytracerError, match="not interpolatable") as e:
+        sc.interpolate(1, prim, u, v)
+    assert e.value.code == ett.Error.INVALID_ARGUMENT

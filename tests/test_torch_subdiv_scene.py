@@ -294,11 +294,12 @@ def test_filter_rejecting_grid_hits_restarts(scenes):
 
 def test_not_ported_arguments_raise():
     verts, counts, indices = subdiv_cube()
+    # per-edge tessellation levels are ported: a uniform level buffer
+    # commits as the uniform tessellation at that rate
     s = ett.Scene(ett.Device("ignore_config_files=1", device="cpu"))
     s.attach(ett.SubdivMesh(verts, counts, indices,
                             edge_levels=np.full(24, 4.0, np.float32)))
-    with pytest.raises(ett.RaytracerError, match="not ported yet"):
-        s.commit()
+    assert s.commit().tris.num_prims == len(counts) * 2 * 4 * 4
     # a ray time is ported; on a scene without motion blur it changes
     # nothing, and occlusion over motion-blur geometry is what still raises
     sc = make_scene("leaf")
