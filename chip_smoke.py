@@ -62,6 +62,19 @@ the public entry points:
     2^20 random points; phase 24: the `subdivision_geometry` (B2, analytic
     patch derivatives; its 128x128 frame against the reference's render,
     0.2 %) and `interpolation` (B2 and B4) tutorials at 512x512;
+  * instances and user geometry (phase 25, inst-grid): 64 rotated and
+    scaled instances of (a)'s 99,012-triangle sphere, committed once,
+    over a ground plane, with 2^21 incoherent rays and a 1920x1080 frame
+    through `scene.intersect` / `scene.occluded` (one B2 launch an
+    instance and one for the ground a request, each instance walking the
+    rays it gathers through its entry cull, timed against every ray
+    through every instance, bit for bit the same hits), the first 2^15
+    rays held against the whole fold through the plain versions bit for
+    bit, a brute force in every instance's space;
+    an instance of main's sphere (B1 serves the child) and two of a
+    compressed child (B4, B5); the `instanced_geometry`, `user_geometry`,
+    `intersection_filter`, `lazy_geometry`, `bvh_builder` and
+    `bvh_access` tutorials;
   * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
     all ten kernel entries against their plain versions, and 100,000
     rays from inside closed surfaces through B2, B6, B1, B4 and B5, none
@@ -137,6 +150,12 @@ from embree_tpu_torch.render.tutorials import (  # noqa: E402
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     hair_geometry as hair_tutorial)
 from embree_tpu_torch.scene.scene import _fold, _fold_hair  # noqa: E402
+from embree_tpu_torch.scene import scene as scene_mod  # noqa: E402
+from embree_tpu_torch.scene.scene import _entry_cull, _to_local  # noqa: E402
+from embree_tpu_torch.traverse import cbvh as cbvh_mod  # noqa: E402
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    bvh_access, bvh_builder, instanced_geometry, intersection_filter,
+    lazy_geometry, user_geometry)
 from embree_tpu_torch.traverse import cbvh_kernel as ck  # noqa: E402
 from embree_tpu_torch.traverse import hair_kernel as hk  # noqa: E402
 from embree_tpu_torch.traverse.hair import _cone_hit  # noqa: E402
@@ -241,6 +260,18 @@ DEMO_FRAMES = 3            # timed frames of the viewer's benchmark
 DEMO_SEED = 0xB0B
 DEMO_INTERP_LOG2 = 20      # random (face, u, v) of Scene.interpolate
 TUTORIAL_SIZE = 512        # the phase 24 tutorials' frames
+# inst-grid (phase 25): (a)'s sphere committed once, 8 x 8 instances of
+# it at spacing 3, each rotated and scaled in [0.5, 1.5] from a seed, over
+# a ground plane; the rays the whole fold re-walks through the plain
+# versions, the rays of the brute force in every instance's space, and
+# the rays through one instance of main's sphere (B1 serves the child)
+INST_GRID = 8
+INST_SPACING = 3.0
+INST_SEED = 0x1A57
+INST_PLAIN_LOG2 = 15
+INST_BRUTE_LOG2 = 12
+INST_B1_LOG2 = 17
+INST_TUTORIAL_SIZE = (64, 48)   # the card's frames held against the CPU's
 CONE_FLOPS = 87
 RIBBON_FLOPS = 74
 # a ray rotated into a cluster's frame: origin and direction, 9 products
@@ -2071,6 +2102,494 @@ def tutorial_phase(device):
     return pk_err, cb_err
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """The scene's kernel entry points answered by the kernels' plain
+    versions, on the card's tensors, while the block runs: a request then
+    goes through the whole fold (transforms, entry cull, finalize) with
+    the plain versions where the kernels were."""
+    def packet_raw(ps, rays, cull=False, ray_mask=None):
+        t, prim = pk.packet_plain(ps, rays, False, cull, ray_mask=ray_mask)
+        return t, pk._to_orig(ps, prim)
+
+    def packet_occluded(ps, rays, cull=False, ray_mask=None):
+        t, _ = pk.packet_plain(ps, rays, True, cull, ray_mask=ray_mask)
+        return (t == -math.inf).reshape(rays.batch_shape)
+
+    def treelet(ts, rays, occluded=False, cull=False):
+        return rt2.rowtrace2_plain(ts, rays, occluded, cull)
+
+    def cbvh_closest(pc, rays, t_in=None):
+        t, u, v, tile = ck.cbvh_plain(pc, Rays(
+            rays.org, rays.dir, rays.tnear,
+            rays.tfar if t_in is None else t_in.reshape(-1).contiguous()))
+        u, v = cbvh_mod.remap_uv(pc.uv0, pc.uvd, u, v, tile)
+        return cbvh_mod._CHit(t=t, u=u, v=v, tile=tile)
+
+    def cbvh_occluded(pc, rays):
+        return ck.cbvh_occluded_plain(pc, rays).reshape(rays.batch_shape)
+
+    swap = {"intersect_packet_kernel_raw": packet_raw,
+            "occluded_packet_kernel": packet_occluded,
+            "intersect_rowtrace2": treelet,
+            "intersect_compressed_kernel": cbvh_closest,
+            "occluded_compressed_kernel": cbvh_occluded}
+    saved = {k: getattr(scene_mod, k) for k in swap}
+    for k, fn in swap.items():
+        setattr(scene_mod, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(scene_mod, k, fn)
+
+
+def same_hits(label, a, b):
+    """Two Hits equal bit for bit (floats compared as their bits); the
+    largest |t| difference (0)."""
+    n = a.t.numel()
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"{label}: {name} differs on "
+                f"{int((x != y).reshape(n, -1).any(1).sum())} rays")
+    return 0.0
+
+
+def fold_against_plain(label, scene, rays, coherent=False):
+    """A request through the kernels against the same request with the
+    plain versions in their place, on the same card tensors: every field
+    of the hits bit for bit (t at 0 ulp, prim_id, geom_id, inst_id
+    equal), occlusion equal. Returns the largest error, 0.0."""
+    h_k = scene.intersect(rays, coherent=coherent)
+    o_k = scene.occluded(rays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        h_p = scene.intersect(rays, coherent=coherent)
+        o_p = scene.occluded(rays)
+        torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = same_hits(label, h_k, h_p)
+    if not torch.equal(o_k, o_p):
+        raise AssertionError(f"{label}: occlusion differs from the plain "
+                             f"fold on {int((o_k != o_p).sum())} rays")
+    # (conservative compressed modes may be occluded without a hit)
+    if (h_k.valid & ~o_k).any():
+        raise AssertionError(f"{label}: a hit is not occluded")
+    log(f"  {label}: {rays.tnear.numel()} rays, {int(h_k.valid.sum())} hits "
+        f"({int((h_k.inst_id >= 0).sum())} in instances): kernels == the "
+        f"whole fold through the plain versions bit for bit (t, u, v, Ng, "
+        f"prim_id, geom_id, gprim, inst_id), occlusion equal "
+        f"({int(o_k.sum())} occluded); plain {plain_ms:.0f} ms")
+    return err
+
+
+def device_profile(fn):
+    """One call of `fn` under torch.profiler (CUPTI): the summed device
+    time of its kernels (ms), and the device time (ms) of each PyTorch
+    op and each kernel launched outside one (B2's through ctypes), most
+    first; (0.0, []) where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    by_op = sorted([(e.self_device_time_total / 1e3, e.key) for e in rows
+                    if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0]
+                   + [(e.self_device_time_total / 1e3, e.key)
+                      for e in kernels if "packet_kernel" in e.key],
+                   reverse=True)
+    return sum(e.self_device_time_total for e in kernels) / 1e3, by_op
+
+
+def grid_instances(rng):
+    """(local -> world (3, 4) f32) of the inst-grid: 8 x 8 on a grid of
+    spacing 3 in x and z, each a random rotation (a unit quaternion) and
+    a uniform scale in [0.5, 1.5]."""
+    out = []
+    for i in range(INST_GRID):
+        for k in range(INST_GRID):
+            q = rng.normal(size=4)
+            w, x, y, z = q / np.linalg.norm(q)
+            R = np.array([
+                [1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                 2 * (x * z + y * w)],
+                [2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                 2 * (y * z - x * w)],
+                [2 * (x * z - y * w), 2 * (y * z + x * w),
+                 1 - 2 * (x * x + y * y)]])
+            s = rng.uniform(0.5, 1.5)
+            out.append(np.concatenate(
+                [s * R, [[INST_SPACING * i], [0.0], [INST_SPACING * k]]],
+                1).astype(np.float32))
+    return out
+
+
+def instance_brute_check(label, top_cs, child_cs, flat, hits):
+    """2^INST_BRUTE_LOG2 rays (evenly strided) against every triangle of
+    the child in every instance's local space and against the top level's
+    triangles, the closest t a ray: valid equal, t within 1e-5 relative,
+    inst_id equal where the best instance is not tied (within 1e-5)."""
+    n = flat.tnear.shape[0]
+    nb = 1 << INST_BRUTE_LOG2
+    sel = torch.linspace(0, n - 1, nb, device=flat.tnear.device).long()
+    br = Rays(*(a[sel].contiguous() for a in flat))
+    inf = torch.full((nb,), math.inf, device=br.tnear.device)
+
+    def closest(org, d, tris):
+        best = inf.clone()
+        for s in range(0, tris.num_prims, 4096):
+            e = s + 4096
+            ok, tt, _u, _v, _ng = intersect_triangle(
+                org[:, None, :], d[:, None, :], br.tnear[:, None],
+                br.tfar[:, None], tris.v0[None, s:e], tris.v1[None, s:e],
+                tris.v2[None, s:e])
+            tt = torch.where(ok, tt, math.inf).amin(dim=1)
+            best = torch.minimum(best, tt)
+        return best
+
+    per = [closest(br.org, br.dir, top_cs.tris)]
+    for inst in top_cs.instances:
+        lorg, ldir = _to_local(inst, br)
+        per.append(closest(lorg, ldir, child_cs.tris))
+    per = torch.stack(per, dim=1)                   # (nb, 1 + instances)
+    two = per.topk(2, dim=1, largest=False)
+    best, who = two.values[:, 0], two.indices[:, 0]
+    hit = torch.isfinite(best)
+    k_valid, k_t = hits.valid.reshape(-1)[sel], hits.t.reshape(-1)[sel]
+    if not torch.equal(hit, k_valid):
+        raise AssertionError(f"{label}: brute force: valid masks differ on "
+                             f"{int((hit != k_valid).sum())} rays")
+    rel = (float(((best - k_t).abs() / k_t.abs())[hit].max())
+           if hit.any() else 0.0)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{label}: brute force: t differs by {rel:g} "
+                             "relative")
+    ids = torch.tensor([-1] + [i.inst_id for i in top_cs.instances],
+                       device=who.device)[who]
+    untied = hit & (two.values[:, 1] > best * (1 + 1e-5))
+    k_inst = hits.inst_id.reshape(-1)[sel]
+    if not torch.equal(ids[untied], k_inst[untied].long()):
+        raise AssertionError(f"{label}: brute force: inst_id differs")
+    log(f"  {label}: brute force over the child's {child_cs.tris.num_prims} "
+        f"triangles in each of {len(top_cs.instances)} instances' spaces "
+        f"and the top level's, {nb} rays: same valid mask "
+        f"({int(hit.sum())} hits), t within {rel:g} relative, inst_id "
+        f"equal on the {int(untied.sum())} untied hits")
+
+
+def instance_phase(device, main_scene):
+    """Phase 25: inst-grid (64 instances of (a)'s 99,012-triangle sphere,
+    the child committed once, over a ground plane) through the entry
+    points: request times, B2 launches a request, the share of rays each
+    instance gathers and the share its entry cull retires, the gathered
+    fold against every ray through every instance, device bytes, commit
+    s; the kernels against the
+    whole fold through the plain versions on 2^15 rays; a brute force in
+    every instance's space; one instance of main's sphere (B1 serves the
+    child) and two of a compressed child (B4, B5); the six tutorials of
+    instances, user geometry and the rtcore facade. Returns the largest
+    error of each kernel against its plain version (all 0)."""
+    rng = np.random.default_rng(INST_SEED)
+    dev = ett.Device("ignore_config_files=1")
+    verts, idx = triangle_sphere((0.0, 0.0, 0.0), 1.0, SMALL_RES)
+    child = ett.Scene(dev)
+    child.attach(ett.TriangleMesh(verts, idx))
+    t0 = time.perf_counter()
+    child_cs = child.commit()
+    torch.cuda.synchronize()
+    child_s = time.perf_counter() - t0
+    top = ett.Scene(dev)
+    for x in grid_instances(rng):
+        top.attach(ett.Instance(child, x))
+    ext = INST_SPACING * (INST_GRID - 1)
+    top.attach(ett.TriangleMesh(
+        np.array([[-3, -2, -3], [ext + 3, -2, -3], [ext + 3, -2, ext + 3],
+                  [-3, -2, ext + 3]], np.float32),
+        np.array([[0, 1, 2], [0, 2, 3]], np.int32)))
+    t0 = time.perf_counter()
+    top_cs = top.commit()
+    torch.cuda.synchronize()
+    top_s = time.perf_counter() - t0
+    n_inst = len(top_cs.instances)
+    if n_inst != INST_GRID ** 2 or child_cs.tris.num_prims != len(idx):
+        raise AssertionError(f"inst-grid: {n_inst} instances of "
+                             f"{child_cs.tris.num_prims} triangles")
+    if any(i.child is not child_cs for i in top_cs.instances):
+        raise AssertionError("an instance holds a copy of the child")
+    boxes = sum(i.cull_lower.shape[0] for i in top_cs.instances)
+    table = tensor_bytes(*(a for i in top_cs.instances
+                           for a in (i.cull_lower, i.cull_upper)))
+    log(f"  commit: the child {child_s:.2f} s ({child_cs.tris.num_prims} "
+        f"triangles, BVH{child_cs.packet.width} of "
+        f"{child_cs.packet.num_nodes} nodes), the top {top_s:.2f} s "
+        f"({n_inst} instances, {boxes} entry boxes, 2 ground triangles); "
+        f"{n_inst * child_cs.tris.num_prims} instanced triangles")
+    log(f"  device bytes: the child's compact packet scene "
+        f"{child_cs.packet.device_bytes / 1e6:.1f} MB and its committed "
+        f"scene {_scene_bytes(child_cs) / 1e6:.1f} MB, held once; the "
+        f"top's own {_scene_bytes(top_cs) / 1e6:.3f} MB, of it the instance "
+        f"tables {table / 1e3:.1f} kB; all "
+        f"{_scene_bytes(top_cs, children=True) / 1e6:.1f} MB")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        top.print_statistics()
+    log("  " + out.getvalue().strip())
+
+    n = 1 << LOG2_RAYS
+    lo = np.array([-3.0 - 3, -2.0 - 3, -3.0 - 3], np.float32)
+    hi = np.array([ext + 6, 1.5 + 3, ext + 6], np.float32)
+    org = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    rays = ett.make_rays(org, unit_dirs(rng, n), device=device)
+    cam = Camera(from_=(ext / 2, 14.0, -7.0), to=(ext / 2, 0.0, ext / 2))
+    frame = primary_rays(cam, FRAME[0], FRAME[1], device=device)
+    nf = FRAME[0] * FRAME[1]
+    want = n_inst + 1       # one B2 launch an instance, one for the ground
+    with Launches() as lc:
+        hits = top.intersect(rays)
+        occ = top.occluded(rays)
+        torch.cuda.synchronize()
+    lc.expect("inst-grid: 1 intersect + 1 occluded request", 0, 2 * want)
+    check_hits("inst-grid", hits, (n,))
+    if not torch.equal(occ, hits.valid):
+        raise AssertionError("inst-grid: occluded != valid")
+    with Launches() as lc:
+        fhits = top.intersect(frame, coherent=True)
+        torch.cuda.synchronize()
+    lc.expect("inst-grid: the coherent frame", 0, want)
+    check_hits("inst-grid frame", fhits, (FRAME[1], FRAME[0]))
+    # the rays each launch walks: the share of the request that the test
+    # against the union of the instance's entry boxes gathers, and of the
+    # request the share that passes the entry boxes themselves
+    shares = []
+    reaching = scene_mod._reaching
+
+    def counting_reaching(inst, flat, tfar):
+        sel, tfar_in = reaching(inst, flat, tfar)
+        n_all = flat.tnear.shape[0]
+        shares.append((sel.numel() / n_all,
+                       float((tfar_in > -math.inf).sum()) / n_all))
+        return sel, tfar_in
+
+    scene_mod._reaching = counting_reaching
+    try:
+        top.intersect(rays)
+        inc = np.array(shares)
+        shares.clear()
+        top.intersect(frame, coherent=True)
+        frm = np.array(shares)
+    finally:
+        scene_mod._reaching = reaching
+    for what, a in ((f"2^{LOG2_RAYS} incoherent rays", inc),
+                    ("the frame", frm)):
+        log(f"  rays a launch walks, {what}: gathered by the union box "
+            f"mean {a[:, 0].mean():.4f} of the request (min "
+            f"{a[:, 0].min():.4f}, max {a[:, 0].max():.4f}), of them "
+            f"through the entry boxes mean {a[:, 1].mean():.4f}; the entry "
+            f"cull retires {1 - a[:, 1].mean():.4f} (tfar = -inf or not "
+            "gathered)")
+    times = {}
+    for label, fn, nr in (
+            (f"intersect, 2^{LOG2_RAYS} incoherent rays",
+             lambda: top.intersect(rays), n),
+            (f"occluded, 2^{LOG2_RAYS} incoherent rays",
+             lambda: top.occluded(rays), n),
+            (f"intersect, {FRAME[0]}x{FRAME[1]} coherent frame",
+             lambda: top.intersect(frame, coherent=True), nf),
+            (f"occluded, {FRAME[0]}x{FRAME[1]} frame",
+             lambda: top.occluded(frame), nf)):
+        ms = time_ms(fn)
+        times[label] = ms
+        log(f"  inst-grid {label}: {ms:.3f} ms, {nr / ms / 1e3:.1f} Mray/s "
+            f"({want} B2 launches a request)")
+    # the same requests with every ray through every instance, the culled
+    # ones at tfar = -inf (the JAX package's shape, and the port's fold
+    # before it gathered), timed in turn with the gathered fold; the
+    # answers equal bit for bit
+    def every_ray(inst, flat, tfar):
+        if inst.cull_lower is None:
+            return None, tfar
+        reach = _entry_cull(inst.cull_lower, inst.cull_upper, flat, tfar)
+        return None, torch.where(reach, tfar, -math.inf)
+
+    gathered = scene_mod._reaching
+    for label, fn in ((f"2^{LOG2_RAYS} incoherent rays",
+                       lambda: top.intersect(rays)),
+                      (f"the {FRAME[0]}x{FRAME[1]} frame",
+                       lambda: top.intersect(frame, coherent=True))):
+        runs, out = [], {}
+        for what in ("gathered", "every ray", "every ray", "gathered"):
+            scene_mod._reaching = gathered if what == "gathered" else every_ray
+            try:
+                runs.append(time_ms(fn))
+                out.setdefault(what, fn())
+            finally:
+                scene_mod._reaching = gathered
+        same_hits(f"inst-grid {label}: gathered against every ray",
+                  out["gathered"], out["every ray"])
+        ms_g, ms_e = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        log(f"  inst-grid intersect, {label}: the gathered fold "
+            f"{ms_g:.3f} ms, every ray through every instance {ms_e:.3f} "
+            f"ms ({ms_e / ms_g:.1f}x; runs gathered, every ray, every ray, "
+            "gathered, each a median of 5: "
+            + ", ".join(f"{x:.3f}" for x in runs) + "); hits equal bit for "
+            "bit")
+    label = f"intersect, 2^{LOG2_RAYS} incoherent rays"
+    dev_ms, rows = device_profile(lambda: top.intersect(rays))
+    if dev_ms > 0:
+        b2 = sum(ms for ms, k in rows if "packet_kernel" in k)
+        log(f"  inst-grid {label} under torch.profiler: its kernels "
+            f"{dev_ms:.1f} ms of the request's {times[label]:.1f} ms "
+            f"unprofiled ({100 * dev_ms / times[label]:.0f} % busy), B2 "
+            f"{b2:.1f} ms; by op: " + "; ".join(
+                f"{k[:40]} {ms:.1f} ms" for ms, k in rows[:10]))
+    else:
+        log(f"  inst-grid {label}: device busy share not measured (the "
+            "profiler saw no device time)")
+    # one launch alone: the child's B2 over the incoherent rays that one
+    # instance gathers, moved into its space; beside it the box test over
+    # every ray, which the fold ran for each instance before it gathered
+    flat = flat_rays(rays)
+    inst = top_cs.instances[27]
+    sel, tfar_in = scene_mod._reaching(inst, flat, flat.tfar)
+    sub = Rays(*(a[sel] for a in flat))
+    lorg, ldir = _to_local(inst, sub)
+    lrays = Rays(lorg, ldir, sub.tnear, tfar_in)
+    one_ms = time_ms(lambda: pk.packet_trace(child_cs.packet, lrays))
+    reach_ms = time_ms(lambda: scene_mod._reaching(inst, flat, flat.tfar))
+    xfm_ms = time_ms(lambda: _to_local(inst, sub))
+    cull_ms = time_ms(lambda: _entry_cull(inst.cull_lower, inst.cull_upper,
+                                          flat, flat.tfar))
+    log(f"  one instance alone, 2^{LOG2_RAYS} rays: {sel.numel()} gathered, "
+        f"{int((tfar_in > -math.inf).sum())} through its entry boxes; B2 "
+        f"over them {one_ms:.3f} ms, the gather and cull {reach_ms:.3f} "
+        f"ms, their transform {xfm_ms:.3f} ms (the box test over every "
+        f"ray {cull_ms:.3f} ms)")
+
+    # correctness: the fold against the plain fold, and a brute force
+    head = Rays(*(a[:1 << INST_PLAIN_LOG2].contiguous() for a in rays))
+    err = fold_against_plain(
+        f"inst-grid, the first 2^{INST_PLAIN_LOG2} incoherent rays", top,
+        head)
+    instance_brute_check("inst-grid", top_cs, child_cs, flat, hits)
+
+    # B1 serves a child: one instance of main's sphere
+    big = ett.Scene(dev)
+    bx = grid_instances(rng)[0]
+    bx[:, 3] = 0.0
+    big.attach(ett.Instance(main_scene, bx))
+    big.commit()
+    nb1 = 1 << INST_B1_LOG2
+    b1_rays = ett.make_rays(
+        rng.uniform(-4.0, 4.0, (nb1, 3)).astype(np.float32),
+        unit_dirs(rng, nb1), device=device)
+    with Launches() as lc:
+        h = big.intersect(b1_rays)
+        big.occluded(b1_rays)
+        torch.cuda.synchronize()
+    lc.expect("an instance of main's sphere: 1 intersect + 1 occluded", 2, 0)
+    b1_err = fold_against_plain(
+        f"an instance of main's 998,284 triangles, 2^{INST_B1_LOG2} rays "
+        "(B1 serves the child)", big, b1_rays)
+    log(f"  {int(h.valid.sum())} hits; request "
+        f"{time_ms(lambda: big.intersect(b1_rays)):.3f} ms")
+
+    # B4 and B5 serve a child: two instances of a compressed cage (leaf)
+    sub = subdiv_scene("", sphere_cage(SUBDIV_SMALL_CAGE,
+                                       noise_displacement),
+                       SUBDIV_SMALL_LEVELS, "leaf")
+    pair = ett.Scene(dev)
+    xs = grid_instances(rng)[:2]
+    xs[1][:, 3] = xs[0][:, 3] + np.float32([4.5, 0.0, 0.0])
+    for x in xs:
+        pair.attach(ett.Instance(sub, x))
+    pair.commit()
+    n16 = 1 << 16
+    c_org = rng.uniform(-5.0, 9.5, (n16, 3)).astype(np.float32)
+    c_rays = ett.make_rays(c_org, unit_dirs(rng, n16), device=device)
+    with Launches() as lc:
+        pair.intersect(c_rays)
+        pair.occluded(c_rays)
+        torch.cuda.synchronize()
+    lc.expect_cbvh("two instances of a compressed child", 2, 2)
+    cb_err = fold_against_plain(
+        f"two instances of sphere_cage({SUBDIV_SMALL_CAGE}) leaf at levels "
+        f"{SUBDIV_SMALL_LEVELS}, 2^16 rays (B4, B5 serve the child)", pair,
+        c_rays)
+
+    # the tutorials
+    tut_err = 0.0
+    for name, mod, per_frame in (
+            ("instanced_geometry", instanced_geometry, 5),
+            ("user_geometry", user_geometry, 2),
+            ("intersection_filter", intersection_filter, None),
+            ("lazy_geometry", lazy_geometry, None)):
+        app = mod.make_app()
+        app.default_size = (TUTORIAL_SIZE, TUTORIAL_SIZE)
+        out = io.StringIO()
+        with Launches() as lc, contextlib.redirect_stdout(out):
+            rc = app.run(["--benchmark", "1", "3", "-rtcore",
+                          "ignore_config_files=1"])
+            torch.cuda.synchronize()
+        print(out.getvalue(), end="")
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+        if per_frame is not None:
+            lc.expect(f"{name}: 5 frames", 0, 5 * per_frame)
+        fps = float(dict(line.split() for line in out.getvalue().splitlines()
+                         if line.startswith("BENCHMARK_RENDER_"))
+                    ["BENCHMARK_RENDER_AVG"])
+        states = [mod.build_scene(ett.Device(rt)) for rt in (
+            "ignore_config_files=1", "ignore_config_files=1,device=cpu")]
+        imgs = [mod.render_frame(st, app.camera, INST_TUTORIAL_SIZE)[0]
+                .cpu().numpy() for st in states]
+        bad = float((np.abs(imgs[0] - imgs[1]).max(-1) > 1.5 / 255).mean())
+        if bad > 0.005 or imgs[0].max() < 0.2:
+            raise AssertionError(f"{name}: {bad:.4%} of the pixels differ "
+                                 "from the CPU render")
+        if name == "lazy_geometry" and (states[0]["built"]
+                                        != states[1]["built"]):
+            raise AssertionError("lazy_geometry built other spheres on the "
+                                 "card than on the CPU")
+        if name == "instanced_geometry":
+            e = fold_against_plain(
+                f"{name} primary rays {TUTORIAL_SIZE}x{TUTORIAL_SIZE}",
+                app.build_scene(app)["scene"],
+                primary_rays(app.camera, TUTORIAL_SIZE, TUTORIAL_SIZE,
+                             device=device), coherent=True)
+            tut_err = max(tut_err, e)
+        log(f"  {name} at {TUTORIAL_SIZE}x{TUTORIAL_SIZE}: {fps:.1f} frames/s "
+            f"(BENCHMARK_RENDER_AVG, host clock; {lc.packet} B2 launches in "
+            f"5 frames); {INST_TUTORIAL_SIZE[0]}x{INST_TUTORIAL_SIZE[1]}: "
+            f"{bad:.4%} of the pixels differ from this package's CPU render "
+            "(budget 0.5 %)")
+    for name, fn in (("bvh_builder", lambda: bvh_builder.main(
+            ["-rtcore", "ignore_config_files=1"])),
+            ("bvh_access", lambda: bvh_access.main(
+                ["-rtcore", "ignore_config_files=1"]))):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fn()
+        lines = out.getvalue().splitlines()
+        if rc != 0 or not lines:
+            raise AssertionError(f"{name} returned {rc}")
+        log(f"  {name} ({time.perf_counter() - t0:.1f} s): "
+            + ("; ".join(lines) if name == "bvh_builder" else lines[-1]))
+    return {"packet": max(err, tut_err), "rowtrace2": b1_err,
+            "cbvh": cb_err, "cbvh_occluded": cb_err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3129,6 +3648,11 @@ def main() -> int:
     log("[24] subdivision_geometry and interpolation tutorials")
     tut_pk_err, tut_cb_err = tutorial_phase(dev.device)
 
+    # -- 25. instances, user geometry, the rtcore facade: inst-grid ---------
+    log(f"[25] inst-grid: {INST_GRID ** 2} instances of (a)'s sphere over a "
+        "ground plane; instanced main and compressed children; six tutorials")
+    inst = instance_phase(dev.device, scene)
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
     # rays (the counting plain version). packet: ms and bound_ms belong to
@@ -3147,14 +3671,16 @@ def main() -> int:
     # over every cluster of main-hair (cone) and hairball-flat (ribbon) for
     # the 2^21 incoherent rays, plain_ms to their first 2^16 rays. Every
     # max_abs_err includes phase 3f's NaN and Inf lanes, and those of B1,
-    # B4 and B5 phase 3g's watertight rays
+    # B4 and B5 phase 3g's watertight rays; the launches and errors of
+    # packet, rowtrace2, cbvh and cbvh_occluded include phase 25's instanced
+    # requests (whole folds held against the plain versions)
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
         "replaces": "embree_tpu/traverse/rowtrace2.py:153",
         "launches": Launches.totals["rowtrace2"],
         "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"],
-                           wt_err["rowtrace2"]),
+                           wt_err["rowtrace2"], inst["rowtrace2"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": nb1,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -3164,7 +3690,7 @@ def main() -> int:
         "replaces": "embree_tpu/traverse/pallas_packet.py:261",
         "launches": Launches.totals["packet"],
         "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
-                           lane_err["packet"], tut_pk_err),
+                           lane_err["packet"], tut_pk_err, inst["packet"]),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
         "plain_rays": n,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],
@@ -3176,7 +3702,8 @@ def main() -> int:
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:175",
         "launches": Launches.totals["cbvh"],
         "max_abs_err": max(cb_small_err, cb_full_err, lane_err["cbvh"],
-                           wt_err["cbvh"], demo_err, tut_cb_err),
+                           wt_err["cbvh"], demo_err, tut_cb_err,
+                           inst["cbvh"]),
         "ms": cb_inc["closest"]["ms"], "plain_ms": cb_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["closest"]["bound"]["bound_ms"],
@@ -3189,7 +3716,7 @@ def main() -> int:
         "launches": Launches.totals["cbvh_occluded"],
         "max_abs_err": max(cbo_small_err, cbo_full_err,
                            lane_err["cbvh_occluded"],
-                           wt_err["cbvh_occluded"]),
+                           wt_err["cbvh_occluded"], inst["cbvh_occluded"]),
         "ms": cb_inc["occluded"]["ms"], "plain_ms": cbo_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["occluded"]["bound"]["bound_ms"],

@@ -13,14 +13,19 @@ compressed-tile kernels, with ray masks and intersection filters;
 motion blur: triangle, quad and subdivision meshes with N >= 2 vertex
 timesteps, closest hit at a time a ray through the MB kernel; curves:
 line segments, round and flat Bezier and B-spline hair in strand-aligned
-OBB clusters through the hair kernel, motion-blur Bezier curves; the
+OBB clusters through the hair kernel, motion-blur Bezier curves;
+instances of committed scenes (nested too) and user geometry, each
+instance through its child's own kernels; the rtcore API facade
+(`rtcore.py`, `rtcBuildBVH` through `build/user_builder.py`); the
 differentiable hit (`diff.hit`); rtcInterpolate (`Scene.interpolate`,
 `interpolate_normal`: positions, normals, vertex attributes and the
 analytic limit-surface derivatives of subdiv/patches.py); the OBJ/MTL
 loader, textures and the material table; the `triangle_geometry`,
 `displacement_geometry`, `motion_blur_geometry`, `hair_geometry`,
-`curve_geometry`, `viewer`, `interpolation` and `subdivision_geometry`
-tutorials (`render.tutorials`).
+`curve_geometry`, `viewer`, `interpolation`, `subdivision_geometry`,
+`instanced_geometry`, `user_geometry`, `intersection_filter`,
+`lazy_geometry`, `bvh_builder` and `bvh_access` tutorials
+(`render.tutorials`).
 
 Quick start::
 
@@ -36,8 +41,9 @@ from .core.device import Device, Error, RaytracerError
 from .core.rayhit import Hits, INVALID_ID, Rays, make_rays, miss_hits
 from .scene.curves import (BezierCurves, BezierCurvesMB, BSplineCurves,
                            LineSegments)
-from .scene.geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
-                             SubdivMeshMB, TriangleMesh, TriangleMeshMB)
+from .scene.geometry import (Geometry, Instance, QuadMesh, QuadMeshMB,
+                             SubdivMesh, SubdivMeshMB, TriangleMesh,
+                             TriangleMeshMB, UserGeometry)
 from .scene.scene import (BuildQuality, CommittedScene, Scene, scene_intersect,
                           scene_occluded)
 
@@ -47,7 +53,8 @@ __all__ = [
     "State", "Device", "Error", "RaytracerError",
     "Rays", "Hits", "make_rays", "miss_hits", "INVALID_ID",
     "Geometry", "TriangleMesh", "QuadMesh", "SubdivMesh",
-    "TriangleMeshMB", "QuadMeshMB", "SubdivMeshMB",
+    "TriangleMeshMB", "QuadMeshMB", "SubdivMeshMB", "Instance",
+    "UserGeometry",
     "LineSegments", "BezierCurves", "BSplineCurves", "BezierCurvesMB",
     "Scene", "BuildQuality", "CommittedScene",
     "scene_intersect", "scene_occluded",

@@ -8,7 +8,8 @@ package's `CommittedScene` on the given device;
 subdivision accel, so that both packages trace the same tiles, and
 `mb_accel_from_reference` for a motion-blur accel and its packed rows,
 `hair_clusters_from_reference` for the hair clusters of a curve
-geometry and `mb_curves_from_reference` for a motion-blur curve accel.
+geometry, `mb_curves_from_reference` for a motion-blur curve accel and
+`instance_entries_from_reference` for the instances of a scene.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .build.bvh import BVH
 from .build.cbvh import CompressedTiles
 from .build.treelets import BLOCK_ROWS, TreeletScene, compact_treelets
 from .scene.prims import TrianglePrims
-from .scene.scene import CommittedScene, HairEntry
+from .scene.scene import CommittedScene, HairEntry, InstanceEntry
 from .traverse.cbvh import CompressedAccel
 from .traverse.hair_kernel import WIDTH as HAIR_WIDTH, packed_from_arrays
 from .traverse.mb import MBAccel, MBCurves
@@ -237,3 +238,32 @@ def mb_curves_from_reference(arrays: dict, device) -> MBCurves:
                               "u0", "du")},
         **{k: _tensor(arrays[k], i32, device)
            for k in ("geom_id", "prim_id")})
+
+
+def instance_entries_from_reference(arrays, device) -> tuple:
+    """The `instances` of a CommittedScene from the JAX package's
+    `InstanceEntry`s. `arrays` holds one dict an instance, in the JAX
+    package's order, with `inst_id` (int), `local2world` and
+    `world2local` (3, 4) f32, `cull_lower` and `cull_upper` (E, 3) f32
+    (both absent or None for an instance without entry boxes), all numpy,
+    and `child`: this package's CommittedScene of the child (for example
+    from `committed_scene_from_reference`), shared between the instances
+    that name the same object."""
+    device = torch.device(device)
+    out = []
+    for a in arrays:
+        lo, hi = a.get("cull_lower"), a.get("cull_upper")
+        if (lo is None) != (hi is None):
+            raise ValueError("cull_lower and cull_upper come together")
+        if a["child"].device != device:
+            raise ValueError(f"the child scene is on {a['child'].device}, "
+                             f"not {device}")
+        out.append(InstanceEntry(
+            inst_id=int(a["inst_id"]), child=a["child"],
+            local2world=np.array(a["local2world"], np.float32).reshape(3, 4),
+            world2local=np.array(a["world2local"], np.float32).reshape(3, 4),
+            cull_lower=None if lo is None else _tensor(lo, np.float32,
+                                                       device, (-1, 3)),
+            cull_upper=None if hi is None else _tensor(hi, np.float32,
+                                                       device, (-1, 3))))
+    return tuple(out)

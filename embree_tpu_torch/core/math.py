@@ -1,11 +1,12 @@
 """Vector math on torch tensors (last axis has size 3).
 
-Counterpart of embree_tpu/core/math.py: only what the ported modules
-use. `dot` sums the three products left to right so that the float32
-result does not depend on a reduction's internal order.
+Counterpart of embree_tpu/core/math.py. `dot` sums the three products
+left to right so that the float32 result does not depend on a
+reduction's internal order.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -84,3 +85,30 @@ def rcp_safe(a):
     """Reciprocal with +-0 mapped to a huge finite value (embree rcp_safe)."""
     huge = torch.where(a < 0, -RCP_HUGE, RCP_HUGE).to(a.dtype)
     return torch.where(a.abs() < RCP_EPS, huge, 1.0 / a)
+
+
+# ---------------------------------------------------------------------------
+# Axis-aligned bounding boxes: stored as a pair of (..., 3) tensors.
+# ---------------------------------------------------------------------------
+
+def bbox_empty(shape=(), device="cpu"):
+    lower = torch.full(tuple(shape) + (3,), math.inf, dtype=torch.float32,
+                       device=device)
+    upper = torch.full(tuple(shape) + (3,), -math.inf, dtype=torch.float32,
+                       device=device)
+    return lower, upper
+
+
+def bbox_merge(lower_a, upper_a, lower_b, upper_b):
+    return torch.minimum(lower_a, lower_b), torch.maximum(upper_a, upper_b)
+
+
+def bbox_half_area(lower, upper):
+    d = (upper - lower).clamp_min(0.0)
+    return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] \
+        + d[..., 2] * d[..., 0]
+
+
+def bbox_area(lower, upper):
+    """Surface-area metric used by the SAH (reference bbox.h halfArea x2)."""
+    return 2.0 * bbox_half_area(lower, upper)

@@ -3,14 +3,17 @@
 Counterpart of embree_tpu/scene/geometry.py (reference
 kernels/common/geometry.h + scene_*_mesh.*): buffer binding happens on
 the host; Scene.commit() flattens everything into immutable device
-tensors. Triangle, quad and subdivision meshes so far, each also with
-N >= 2 vertex timesteps (motion blur).
+tensors. Triangle, quad and subdivision meshes, each also with N >= 2
+vertex timesteps (motion blur); instances of committed scenes; user
+geometry. The curve types live in scene/curves.py.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+
+from ..core.device import Error, RaytracerError
 
 
 class Geometry:
@@ -102,6 +105,60 @@ class SubdivMesh(Geometry):
     @property
     def num_prims(self) -> int:
         return int(self.face_counts.shape[0])
+
+
+class Instance(Geometry):
+    """RTC_GEOMETRY_TYPE_INSTANCE (scene_instance.{h,cpp}): places a
+    child Scene under an affine transform (local -> world, (3, 4) or
+    (4, 4)). The child is committed at the parent's commit if it was
+    not, and must live on the parent's device. Rays are transformed into
+    instance space at traversal (instance_intersector.{h,cpp}); hit
+    distances are preserved (directions stay unnormalized). The child's
+    committed form is shared by every instance of it, never copied."""
+
+    def __init__(self, child_scene, transform):
+        super().__init__()
+        self.child_scene = child_scene
+        t = np.asarray(transform, np.float32)
+        if t.shape == (4, 4):
+            t = t[:3, :]
+        if t.shape != (3, 4):
+            raise RaytracerError(
+                Error.INVALID_ARGUMENT,
+                f"an instance transform is (3, 4) or (4, 4), not {t.shape}")
+        self.transform = t  # local -> world
+
+    @property
+    def num_prims(self) -> int:
+        return 1
+
+
+class UserGeometry(Geometry):
+    """RTC_GEOMETRY_TYPE_USER (scene_user_geometry + object_intersector):
+    callback-based bounds and intersection. The C callback ABI becomes a
+    pair of python functions:
+
+        bounds_fn(ids: np.ndarray (N,) int64)
+            -> (lower (N, 3), upper (N, 3))          numpy, on the host,
+                                                       once at commit
+        intersect_fn(prim: int, rays: Rays, tfar (R,))
+            -> (valid (R,) bool, t, u, v (R,) f32, ng (R, 3) f32)
+
+    `intersect_fn` works on torch tensors on the rays' device: `rays`
+    is a flat batch of R rays whose `tfar` is the running closest t, and
+    it is called once for each prim of each BVH leaf that any ray
+    reaches (traverse/user.py). A candidate stands where it is valid and
+    tnear < t < tfar."""
+
+    def __init__(self, num_prims, bounds_fn, intersect_fn):
+        super().__init__()
+        self._num = int(num_prims)
+        self.bounds_fn = bounds_fn
+        self.intersect_fn = intersect_fn
+
+    @property
+    def num_prims(self) -> int:
+        return self._num
 
 
 def _timesteps(vertices_begin, vertices_end, timesteps):

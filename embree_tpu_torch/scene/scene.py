@@ -37,7 +37,17 @@ device:
     `hair_accel`, become segment soups walked in torch ops
     (traverse/user.py, the swept cone with end caps of scene/curves.py);
     `BezierCurvesMB` go into one motion-blur curve accel
-    (`_build_mb_curves`, walked by traverse/mb.py::intersect_mb_curves).
+    (`_build_mb_curves`, walked by traverse/mb.py::intersect_mb_curves);
+  * a `UserGeometry` gets a SAH BVH over its `bounds_fn` boxes, walked
+    with its `intersect_fn` by traverse/user.py like a segment soup;
+  * an `Instance` keeps a reference to its child's committed scene (the
+    child is committed first if it was not; every instance of a child
+    shares its one device form), the float32 world-to-local transform
+    inverted on the host as the JAX package does, and, where the child
+    has a triangle BVH with a valid root, the child's BVH opened in
+    world space for the entry cull (build/twolevel.py: a budget of 8
+    entry boxes, which the last node opened may pass). The scene keeps
+    its host BVH arrays (`_bvh_host`) for a parent's cull.
 
 Dispatch of `scene_intersect` / `scene_occluded`, the JAX package's:
 the per-ray treelet traversal (traverse/rowtrace2.py) serves a batch
@@ -62,10 +72,30 @@ running t, the hits finalized once; a scene that mixes round and flat
 curves puts the first type's clusters first and makes a launch a type,
 so there a hit at exactly the t of a cluster of the other type can go
 to another curve than in the JAX package's scene order), the segment
-soups. A curve hit carries gprim = -1. Occlusion ORs kernel B3's any-hit
-variant and the segment soups into the answer; the JAX package runs its
-closest-hit walk there, which gives the same booleans. Ray masks act on
-triangles only.
+soups and user geometries in geometry-id order. A curve or user hit
+carries gprim = -1. Instances fold in last, in geometry-id order (the
+JAX package's `scene_intersect` over TransformNodes): the rays are
+slab-tested against the instance's entry boxes (`_entry_cull`: the JAX
+package's test, not the robust one), moved into the child's space, and
+the child's own closest hit walks them from the running t, the rays
+that missed every entry box with tfar = -inf. Only the rays that pass
+the test against the boxes' union are gathered for this (`_reaching`),
+which changes no answer, and the child's kernel is chosen for the
+whole request's ray count, as the JAX package's recursion sees it.
+The child's hit wins where it is valid and nearer, its Ng comes back
+through the transposed inverse, and `inst_id` becomes this instance's
+id, so a hit inside nested instances reports the outermost. The
+recursion passes what the JAX package passes: no `coherent` hint,
+`time`, `ray_mask` or filter, so the child's own dispatch rule picks
+its kernel (B1 for a child with a treelet scene under a request of at
+least ROWTRACE_MIN_RAYS rays, else B2; B4 for a compressed child) and
+a motion-blur child is met at time 0. Occlusion
+ORs kernel B3's any-hit variant, the segment soups and user geometries
+into the answer (the JAX package runs its closest-hit walk there, which
+gives the same booleans), then each instance's child `scene_occluded`
+with tfar = tnear for rays already occluded and no entry cull, the JAX
+package's form; a child with motion blur raises, as the top level does.
+Ray masks act on the top level's triangles only.
 The JAX package stream-sorts
 large incoherent batches (traverse/stream.py) before its packet kernel;
 on this card the sort costs more than it saves (PERF.md), so no path
@@ -79,9 +109,9 @@ the scene's device.
 
 What needs a module which is not ported yet raises
 `RaytracerError(INVALID_OPERATION, "not ported yet: ...")`:
-BuildQuality.LOW / REFIT, occlusion over motion-blur geometry (meshes
-and curves), and the geometry types other than the ten above
-(instances, user geometry).
+BuildQuality.LOW / REFIT and occlusion over motion-blur geometry
+(meshes and curves). World bounds, as in the JAX package, count
+neither instances nor user geometry.
 """
 from __future__ import annotations
 
@@ -98,10 +128,11 @@ from ..build.bvh import BVH, sah_cost
 from ..build.hair import cluster_curves
 from ..build.refit import plan_refit, refit
 from ..build.sah import BuildSettings, build_sah
+from ..build.twolevel import open_merge_entries
 from ..build.treelets import TreeletScene, build_treelet_scene, choose_fan
 from ..core.device import Device, Error, RaytracerError
 from ..core.profile import global_profiler, profile_phase, trace
-from ..core.math import cross
+from ..core.math import cross, rcp_safe, rows_times
 from ..core.rayhit import Hits, Rays, miss_hits
 from ..subdiv.core import evaluate_plan
 from ..subdiv.patches import build_patch_table, eval_patch_table
@@ -125,8 +156,9 @@ from ..traverse.rowtrace2 import intersect_rowtrace2
 from ..traverse.user import UserAccel, intersect_user
 from .curves import (BezierCurves, BezierCurvesMB, BSplineCurves,
                      LineSegments, make_segment_intersector, segment_bounds)
-from .geometry import (Geometry, QuadMesh, QuadMeshMB, SubdivMesh,
-                       SubdivMeshMB, TriangleMesh, TriangleMeshMB)
+from .geometry import (Geometry, Instance, QuadMesh, QuadMeshMB, SubdivMesh,
+                       SubdivMeshMB, TriangleMesh, TriangleMeshMB,
+                       UserGeometry)
 from .subdiv_accel import (_unit, build_compressed_accel,
                            build_subdiv_geometry, fused_normal_table,
                            grid_sample, interpolate_subdiv,
@@ -139,6 +171,9 @@ from .prims import TrianglePrims, empty_triangle_prims, prim_bounds_np
 ROWTRACE_MIN_PRIMS = 100_000
 ROWTRACE_MIN_RAYS = 65_536
 FILTER_MAX_ROUNDS = 1 << 16
+# the entry cull's slack on a box's exit distance (the JAX package's
+# `tmin <= tmax * 1.0000004`)
+CULL_SLACK = float(np.float32(1.0000004))
 # hair_accel values that select the strand-aligned OBB clusters; any other
 # value puts curves into the segment soup
 HAIR_OBB_ACCELS = ("default", "obb", "bvh4obb.bezier1v")
@@ -205,14 +240,29 @@ def hair_set(hairs):
 
 
 class UserEntry(NamedTuple):
-    """One segment-soup accel (LineSegments, or curves outside the OBB
-    accel) walked by traverse/user.py."""
+    """One accel walked by traverse/user.py: a segment soup
+    (LineSegments, or curves outside the OBB accel), or a UserGeometry
+    (`prim_map` None: the hit's prim is the user's prim)."""
 
     gid: int
     accel: UserAccel
-    intersect_fn: Callable    # scene/curves.py::make_segment_intersector
-    prim_map: torch.Tensor    # (S,) i32 segment -> prim id
+    intersect_fn: Callable    # make_segment_intersector's, or the user's
+    prim_map: Optional[torch.Tensor]  # (S,) i32 segment -> prim id
     device_bytes: int
+
+
+class InstanceEntry(NamedTuple):
+    """One committed instance (scene_instance analog)."""
+
+    inst_id: int
+    child: "CommittedScene"    # shared by every instance of the child
+    local2world: np.ndarray    # (3, 4) f32
+    world2local: np.ndarray    # (3, 4) f32, inverted on the host
+    # world boxes of the child's BVH opened for the entry cull
+    # (build/twolevel.py), on the scene's device; None when the child has
+    # no triangle BVH with a valid root
+    cull_lower: Optional[torch.Tensor] = None   # (E, 3) f32
+    cull_upper: Optional[torch.Tensor] = None
 
 
 class CommittedScene(NamedTuple):
@@ -236,9 +286,10 @@ class CommittedScene(NamedTuple):
     mb: Optional[MBAccel] = None              # motion-blur accel
     mb_kernel: Optional[PackedMB] = None      # its packed form
     hairs: tuple = ()                         # HairEntry a cluster
-    users: tuple = ()                         # UserEntry a segment soup
+    users: tuple = ()                 # UserEntry a soup or user geometry
     mb_curves: Optional[MBCurves] = None      # motion-blur curve accel
     hair_set: Optional[HairSet] = None        # `hairs` packed in one set
+    instances: tuple = ()                     # InstanceEntry an instance
 
     @property
     def device(self) -> torch.device:
@@ -353,7 +404,7 @@ class Scene:
         subdiv_compressed = []
         mb_geoms = []
         mb_curve_geoms = []
-        hairs, users = [], []
+        hairs, users, instances = [], [], []
         curve_lo, curve_hi = [], []   # bounds of the curves, for world bounds
         with profile_phase("scene.flatten"):
             for gid, g in sorted(self.geometries.items()):
@@ -414,6 +465,12 @@ class Scene:
                     with profile_phase("scene.build_segments"):
                         users.append(self._segment_accel(gid, g, dev,
                                                          curve_lo, curve_hi))
+                elif isinstance(g, UserGeometry):
+                    with profile_phase("scene.build_user"):
+                        users.append(self._user_accel(gid, g, dev))
+                elif isinstance(g, Instance):
+                    with profile_phase("scene.instance"):
+                        instances.append(self._instance_entry(gid, g, dev))
                 else:
                     raise _not_ported(f"geometry type {type(g).__name__}")
 
@@ -454,6 +511,8 @@ class Scene:
             bvh_np = build_sah(lower, upper, settings,
                                backend=self.device.state.builder,
                                tri_verts=tv)
+        # the host arrays stay for a parent's entry cull (build/twolevel.py)
+        self._bvh_host = bvh_np
         ts_np = None
         if nprims and ((nprims >= ROWTRACE_MIN_PRIMS
                         or ta.endswith(".rowtrace"))
@@ -562,7 +621,8 @@ class Scene:
             tri_patch_uv=tri_patch_uv, compressed=compressed,
             compressed_kernel=compressed_kernel, mb=mb, mb_kernel=mb_kernel,
             hairs=hairs, users=tuple(users), mb_curves=mb_curves,
-            hair_set=hset)
+            hair_set=hset, instances=tuple(instances))
+        # each child's bytes were counted at its own commit
         self.device.memory_monitor(_scene_bytes(self.committed), True)
         self.build_time_s = time.perf_counter() - t0
         self._progress(1.0)
@@ -605,6 +665,43 @@ class Scene:
                          fn, torch.from_numpy(prim_map).to(dev),
                          p0.nbytes + p1.nbytes + u0.nbytes + du.nbytes
                          + prim_map.nbytes)
+
+    def _user_accel(self, gid, g, dev) -> UserEntry:
+        """A UserGeometry: a SAH BVH over the boxes its `bounds_fn` gives
+        for every prim, walked with its `intersect_fn`."""
+        blo, bhi = g.bounds_fn(np.arange(g.num_prims, dtype=np.int64))
+        ub = build_sah(_as_np_f32(blo), _as_np_f32(bhi), BuildSettings(),
+                       backend=self.device.state.builder)
+        return UserEntry(gid, UserAccel(ub.to_device(dev), gid, g.num_prims),
+                         g.intersect_fn, None, 0)
+
+    def _instance_entry(self, gid, g, dev) -> InstanceEntry:
+        """An Instance: its child's committed scene (committed now if it
+        was not), the transforms, and the child's BVH opened in world
+        space for the entry cull; the JAX package's commit branch."""
+        child = g.child_scene
+        if child.device.device != dev:
+            self.device.raise_error(
+                Error.INVALID_ARGUMENT,
+                f"instance {gid}: the child scene is on "
+                f"{child.device.device}, this scene on {dev}")
+        child_cs = (child.committed if child.committed is not None
+                    else child.commit())
+        l2w = np.asarray(g.transform, np.float32)
+        inv = np.linalg.inv(l2w[:, :3])
+        w2l = np.concatenate([inv, (-inv @ l2w[:, 3:])],
+                             axis=1).astype(np.float32)
+        lo = hi = None
+        host = getattr(child, "_bvh_host", None)
+        if (host is not None and host.lower.shape[0]
+                and (np.asarray(host.count)[0] >= 0).any()):
+            ent = open_merge_entries([(l2w, np.asarray(host.lower),
+                                       np.asarray(host.upper),
+                                       np.asarray(host.child),
+                                       np.asarray(host.count))])
+            lo = torch.from_numpy(ent.lower).to(dev)
+            hi = torch.from_numpy(ent.upper).to(dev)
+        return InstanceEntry(gid, child_cs, l2w, w2l, lo, hi)
 
     def _build_mb_curves(self, mb_curve_geoms, dev, curve_lo,
                          curve_hi) -> MBCurves:
@@ -1028,6 +1125,11 @@ class Scene:
         cs = self._require_commit()
         ts = cs.rowtrace
         ct = cs.compressed.tiles if cs.compressed is not None else None
+        soups = [u for u in cs.users if u.prim_map is not None]
+        ug = [u for u in cs.users if u.prim_map is None]
+        children = {id(i.child) for i in cs.instances}
+        boxes = sum(i.cull_lower.shape[0] for i in cs.instances
+                    if i.cull_lower is not None)
         print(f"embree_tpu_torch scene: {len(self.geometries)} geometries, "
               f"{cs.tris.num_prims} flattened triangles, "
               f"{cs.bvh.num_nodes} BVH{cs.bvh.width} nodes, "
@@ -1041,14 +1143,26 @@ class Scene:
               + (f", {len(cs.hairs)} hair clusters of "
                  f"{sum(h.packed.num_segments for h in cs.hairs)} "
                  f"sub-segments" if cs.hairs else "")
-              + (f", {sum(u.accel.num_prims for u in cs.users)} curve "
-                 f"segments" if cs.users else "")
+              + (f", {sum(u.accel.num_prims for u in soups)} curve "
+                 f"segments" if soups else "")
+              + (f", {len(ug)} user geometries of "
+                 f"{sum(u.accel.num_prims for u in ug)} prims" if ug else "")
               + (f", {cs.mb_curves.p0_ts.shape[1]} motion-blur curve "
                  f"segments" if cs.mb_curves is not None else "")
-              + f", build {self.build_time_s * 1e3:.1f} ms")
+              + (f", {len(cs.instances)} instances of {len(children)} "
+                 f"child scenes ({boxes} entry boxes)" if cs.instances
+                 else "")
+              + f", {_scene_bytes(cs, children=True) / 1e6:.1f} MB on "
+                f"{cs.device}, build {self.build_time_s * 1e3:.1f} ms")
 
 
-def _scene_bytes(cs: CommittedScene) -> int:
+def _scene_bytes(cs: CommittedScene, children: bool = False,
+                 _seen=None) -> int:
+    """Device bytes of a committed scene: its own tensors and its
+    instance tables, and with `children` every child scene reached
+    through its instances counted once, however many instances share
+    it."""
+    seen = set() if _seen is None else _seen
     tensors = (list(cs.tris) + list(cs.bvh)
                + [cs.prim_mask, cs.world_lower, cs.world_upper])
     n = sum(a.numel() * a.element_size() for a in tensors)
@@ -1082,6 +1196,12 @@ def _scene_bytes(cs: CommittedScene) -> int:
     if cs.mb_curves is not None:
         n += sum(a.numel() * a.element_size()
                  for a in list(cs.mb_curves.bvh) + list(cs.mb_curves[1:]))
+    for i in cs.instances:
+        if i.cull_lower is not None:
+            n += 2 * i.cull_lower.numel() * 4
+        if children and id(i.child) not in seen:
+            seen.add(id(i.child))
+            n += _scene_bytes(i.child, True, seen)
     return n
 
 
@@ -1105,10 +1225,12 @@ def _flat_mask(cs: CommittedScene, ray_mask, shape):
     return m.broadcast_to(shape).reshape(-1).contiguous()
 
 
-def _use_rowtrace(cs: CommittedScene, flat: Rays, coherent: bool,
+def _use_rowtrace(cs: CommittedScene, n: int, coherent: bool,
                   ray_mask) -> bool:
+    """B1 or B2 for a batch of `n` rays (the whole request's, also where
+    an instance's child walks only the rays that reach it)."""
     return (cs.rowtrace is not None and not coherent and ray_mask is None
-            and flat.tnear.shape[0] >= ROWTRACE_MIN_RAYS)
+            and n >= ROWTRACE_MIN_RAYS)
 
 
 def _apply_patch_uv(cs: CommittedScene, h: Hits) -> Hits:
@@ -1198,20 +1320,117 @@ def _fold_curves(cs: CommittedScene, flat: Rays, hits: Hits, tm) -> Hits:
         t, u, v, ng, prim, hitm = intersect_user(
             e.accel, e.intersect_fn,
             Rays(flat.org, flat.dir, flat.tnear, hits.t), hits.t)
-        hits = _fold(hits, hitm, t, u, v, ng,
-                     e.prim_map[prim.clamp_min(0).long()], e.gid)
+        if e.prim_map is not None:
+            prim = e.prim_map[prim.clamp_min(0).long()]
+        hits = _fold(hits, hitm, t, u, v, ng, prim, e.gid)
+    return hits
+
+
+def _to_local(inst: InstanceEntry, flat: Rays):
+    """(org, dir) of flat rays in the instance's local space, each
+    component summed left to right in float32 (core/math.py::
+    rows_times)."""
+    w2l = inst.world2local
+    lorg = rows_times(flat.org, w2l[:, :3].T)
+    lorg = torch.stack([lorg[:, j] + float(w2l[j, 3]) for j in range(3)],
+                       dim=-1)
+    return lorg, rows_times(flat.dir, w2l[:, :3].T)
+
+
+def _entry_cull(lower, upper, flat: Rays, tfar) -> torch.Tensor:
+    """Any-hit slab test of flat rays against an instance's opened entry
+    boxes (E, 3) (build/twolevel.py): (R,) bool, True where a ray may
+    reach the child. The JAX package's test, copied: `rcp_safe`, entry
+    clamped to tnear, `tmin <= tmax * 1.0000004` and `tmin <= tfar`."""
+    rd = rcp_safe(flat.dir)
+    ord_ = flat.org * rd
+    t_lo = lower[None] * rd[:, None, :] - ord_[:, None, :]   # (R, E, 3)
+    t_hi = upper[None] * rd[:, None, :] - ord_[:, None, :]
+    tmin = torch.minimum(t_lo, t_hi).amax(dim=-1)
+    tmax = torch.maximum(t_lo, t_hi).amin(dim=-1)
+    tmin = torch.maximum(tmin, flat.tnear[:, None])
+    hit = (tmin <= tmax * CULL_SLACK) & (tmin <= tfar[:, None])
+    return hit.any(dim=1)
+
+
+def _reaching(inst: InstanceEntry, flat: Rays, tfar):
+    """The rays of a flat batch that an instance's child walks: (indices
+    (K,) into the batch, or None for all of them; the tfar (K,) each
+    enters the child with). Where the instance has entry boxes, only the
+    rays that pass the slab test of the boxes' union are gathered, and
+    of those the ones that miss every box (`_entry_cull`) enter with
+    tfar = -inf, as in the JAX package. The union test drops no ray that
+    the box test keeps: in float the slab interval of a box holds that
+    of every box inside it, since each step of the test is monotone in
+    the box's bounds."""
+    if inst.cull_lower is None:
+        return None, tfar
+    sel = _entry_cull(inst.cull_lower.amin(0, keepdim=True),
+                      inst.cull_upper.amax(0, keepdim=True), flat,
+                      tfar).nonzero().squeeze(1)
+    sub = Rays(*(a[sel] for a in flat))
+    tfar = tfar[sel]
+    reach = _entry_cull(inst.cull_lower, inst.cull_upper, sub, tfar)
+    return sel, torch.where(reach, tfar, -math.inf)
+
+
+def _child_hits(child: CommittedScene, flat: Rays, n: int) -> Hits:
+    """An instance's child answering its share of a request of `n` rays
+    as the JAX package's recursion into `scene_intersect` does: no
+    `coherent` hint, ray mask or filter, time 0, and the kernel the
+    dispatch rule names for all `n` rays."""
+    tm = (ray_times(0.0, flat.tnear.shape[0], child.device)
+          if child.mb is not None or child.mb_curves is not None else None)
+    return _closest_flat(child, flat, False, None, tm, n)
+
+
+def _fold_instances(cs: CommittedScene, flat: Rays, hits: Hits,
+                    n: int) -> Hits:
+    """The AccelN step over the instances (instance_intersector): each
+    instance's reaching rays (`_reaching`), moved into its local space,
+    through the child's closest hit from the running t; the child's hit
+    wins where valid and nearer, Ng transformed back and `inst_id` set
+    to this instance's id. Only the gathered rays are transformed, walked
+    and merged, so an instance costs in proportion to the rays that come
+    near it; the answer is the JAX package's, which walks every ray."""
+    hits = Hits(*(x.clone() for x in hits))    # merged into in place
+    for inst in cs.instances:
+        sel, tfar_in = _reaching(inst, flat, hits.t)
+        if sel is not None and sel.numel() == 0:
+            continue
+        sub = flat if sel is None else Rays(*(a[sel] for a in flat))
+        old = hits if sel is None else Hits(*(x[sel] for x in hits))
+        lorg, ldir = _to_local(inst, sub)
+        h = _child_hits(inst.child, Rays(lorg, ldir, sub.tnear, tfar_in), n)
+        use = h.valid & (h.t < old.t)
+        # normals transform by (L^-1)^T: row form ng @ w2l_lin
+        ng = rows_times(h.ng, inst.world2local[:, :3])
+        new = Hits(
+            t=torch.where(use, h.t, old.t), u=torch.where(use, h.u, old.u),
+            v=torch.where(use, h.v, old.v),
+            ng=torch.where(use[:, None], ng, old.ng),
+            prim_id=torch.where(use, h.prim_id, old.prim_id),
+            geom_id=torch.where(use, h.geom_id, old.geom_id),
+            gprim=torch.where(use, h.gprim, old.gprim),
+            inst_id=torch.where(use, inst.inst_id, old.inst_id))
+        if sel is None:
+            hits = new
+        else:
+            for x, y in zip(hits, new):
+                x[sel] = y
     return hits
 
 
 def _closest_flat(cs: CommittedScene, flat: Rays, coherent: bool,
-                  ray_mask, tm) -> Hits:
+                  ray_mask, tm, n: int) -> Hits:
     """Unfiltered closest hit of a flat batch: the triangles through the
-    kernel that the dispatch rule names, then the compressed accel, then
-    the motion-blur accel at the rays' times `tm`, then the curves."""
+    kernel that the dispatch rule names for a request of `n` rays, then
+    the compressed accel, then the motion-blur accel at the rays' times
+    `tm`, then the curves and user geometries, then the instances."""
     if cs.tris.num_prims == 0:
         hits = miss_hits(flat.batch_shape, flat.tfar, device=cs.device)
     else:
-        if _use_rowtrace(cs, flat, coherent, ray_mask):
+        if _use_rowtrace(cs, n, coherent, ray_mask):
             t, prim = intersect_rowtrace2(cs.rowtrace, flat,
                                           cull=cs.backface_cull)
         else:
@@ -1222,7 +1441,23 @@ def _closest_flat(cs: CommittedScene, flat: Rays, coherent: bool,
         hits = _fold_compressed(cs, flat, hits)
     if cs.mb is not None:
         hits = _fold_mb(cs, flat, hits, tm)
-    return _fold_curves(cs, flat, hits, tm)
+    hits = _fold_curves(cs, flat, hits, tm)
+    return _fold_instances(cs, flat, hits, n) if cs.instances else hits
+
+
+def _slab_accels(cs: CommittedScene, outer: int = -1) -> list:
+    """[(inst_id, geometry ids, mode)] of the compressed accels in a box,
+    leaf or full mode whose hits `cs` can report (their hits, like curve
+    hits, carry gprim = -1): its own under `outer` (-1 at the top), and
+    those of every instance's child, nested ones too, under the id the
+    hit reports, the outermost instance's."""
+    out = []
+    if cs.compressed is not None and cs.compressed.tiles.mode != "grid":
+        out.append((outer, torch.unique(cs.compressed.tiles.geom_id),
+                    cs.compressed.tiles.mode))
+    for inst in cs.instances:
+        out += _slab_accels(inst.child, inst.inst_id if outer < 0 else outer)
+    return out
 
 
 def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
@@ -1243,8 +1478,9 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
     A box or leaf hit of the compressed accel is the entry into a volume,
     not a point on a surface: a ray restarted just past it starts inside
     the same slab and meets it again a float further on, round after
-    round. Such a rejection raises instead (grid mode tests triangles
-    and restarts like any triangle mesh)."""
+    round. Such a rejection, of the scene's own accel or one inside an
+    instance, raises instead (grid mode tests triangles and restarts
+    like any triangle mesh)."""
     org, d, tnear_cur, tf = flat
     R = tf.shape[0]
     dev = tf.device
@@ -1253,15 +1489,11 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
     prev_prim = torch.full((R,), -2, dtype=torch.int32, device=dev)
     prev_t = torch.full((R,), -math.inf, dtype=torch.float32, device=dev)
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
-    # the geometries of a compressed accel in a box or leaf mode: their
-    # hits, like curve hits, carry gprim = -1
-    slab_gids = (torch.unique(cs.compressed.tiles.geom_id)
-                 if cs.compressed is not None
-                 and cs.compressed.tiles.mode != "grid" else None)
+    slabs = _slab_accels(cs)
     for _ in range(FILTER_MAX_ROUNDS if R else 0):
         tf_eff = torch.where(done, -inf, tf)
         h = _closest_flat(cs, Rays(org, d, tnear_cur, tf_eff), coherent,
-                          ray_mask, tm)
+                          ray_mask, tm, R)
         hitm = h.valid & ~done
         accept = torch.as_tensor(
             filter_fn(org, d, h.t, h.u, h.v, h.ng, h.geom_id, h.prim_id),
@@ -1279,13 +1511,14 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
         tnear_cur = torch.where(rej, adv, tnear_cur)
         prev_prim = torch.where(rej, h.gprim, prev_prim)
         prev_t = torch.where(rej, h.t, prev_t)
-        slab_rej = (rej & (h.gprim < 0) & torch.isin(h.geom_id, slab_gids)
-                    if slab_gids is not None else torch.zeros_like(rej))
-        open_, stuck = torch.stack([(~done).any(), slab_rej.any()]).tolist()
-        if stuck:
+        stuck = [rej & (h.gprim < 0) & (h.inst_id == iid)
+                 & torch.isin(h.geom_id, gids) for iid, gids, _ in slabs]
+        flags = torch.stack([(~done).any()] + [x.any() for x in stuck])
+        open_, *stuck = flags.tolist()
+        if any(stuck):
             raise _not_ported(
                 "an intersection filter that rejects a hit of a "
-                f"bvh4.compressed.{cs.compressed.tiles.mode} accel")
+                f"bvh4.compressed.{slabs[stuck.index(True)][2]} accel")
         if not open_:
             break
     return best
@@ -1296,14 +1529,16 @@ def scene_intersect(cs: CommittedScene, rays: Rays, isa: str = "default",
                     ray_mask=None) -> Hits:
     """Functional entry: closest hit of every ray against the committed
     triangle soup, through the kernel the module docstring's dispatch
-    rule names, then against the compressed accel and the motion-blur
-    accel where the scene has them. `time` (a scalar, or one value in
+    rule names, then against the compressed accel, the motion-blur
+    accel, the curves, user geometries and instances where the scene has
+    them. `time` (a scalar, or one value in
     [0, 1] a ray in any shape; 0 when None) places the rays in the
     shutter; only motion-blur geometry reads it. `isa` is accepted and
     selects nothing."""
     shape = rays.batch_shape
     if (cs.tris.num_prims == 0 and cs.compressed is None and cs.mb is None
-            and cs.mb_curves is None and not cs.hairs and not cs.users):
+            and cs.mb_curves is None and not cs.hairs and not cs.users
+            and not cs.instances):
         return miss_hits(shape, rays.tfar, device=cs.device)
     flat = _flat_rays(cs, rays)
     rm = _flat_mask(cs, ray_mask, shape)
@@ -1313,16 +1548,18 @@ def scene_intersect(cs: CommittedScene, rays: Rays, isa: str = "default",
     if filter_fn is not None:
         h = _intersect_filter_restart(cs, flat, filter_fn, coherent, rm, tm)
     else:
-        h = _closest_flat(cs, flat, coherent, rm, tm)
+        h = _closest_flat(cs, flat, coherent, rm, tm,
+                          flat.tnear.shape[0])
     return Hits(*(x.reshape(shape + x.shape[1:]) for x in h))
 
 
 def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
                    coherent: bool = False, ray_mask=None) -> torch.Tensor:
     """Functional entry: any hit of every ray (bool, the rays' batch
-    shape); the same dispatch as `scene_intersect`. A scene with
-    motion-blur geometry raises: occlusion takes no time, and the JAX
-    package answers it without the motion-blur accel."""
+    shape); the same dispatch as `scene_intersect`, instances last. A
+    scene with motion-blur geometry, or an instance of one, raises:
+    occlusion takes no time, and the JAX package answers it without the
+    motion-blur accel."""
     if cs.mb is not None or cs.mb_curves is not None:
         raise _not_ported("occluded over motion-blur geometry")
     shape = rays.batch_shape
@@ -1331,7 +1568,7 @@ def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
     if cs.tris.num_prims == 0:
         occ = torch.zeros(flat.batch_shape, dtype=torch.bool,
                           device=cs.device)
-    elif _use_rowtrace(cs, flat, coherent, rm):
+    elif _use_rowtrace(cs, flat.tnear.shape[0], coherent, rm):
         t, _ = intersect_rowtrace2(cs.rowtrace, flat, occluded=True,
                                    cull=cs.backface_cull)
         occ = t == -math.inf
@@ -1355,4 +1592,9 @@ def scene_occluded(cs: CommittedScene, rays: Rays, isa: str = "default",
         occ = occ | intersect_user(e.accel, e.intersect_fn,
                                    Rays(flat.org, flat.dir, flat.tnear, tf),
                                    tf)[5]
+    for inst in cs.instances:
+        lorg, ldir = _to_local(inst, flat)
+        occ = occ | scene_occluded(
+            inst.child, Rays(lorg, ldir, flat.tnear,
+                             torch.where(occ, flat.tnear, flat.tfar)))
     return occ.reshape(shape)

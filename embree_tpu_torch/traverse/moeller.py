@@ -1,6 +1,6 @@
 """Moeller-Trumbore triangle intersection (vectorized over rays).
 
-Counterpart of embree_tpu/traverse/moeller.py::intersect_triangle, the
+Counterpart of embree_tpu/traverse/moeller.py: `intersect_triangle`, the
 reference's precomputed-cross variant
 (kernels/geometry/triangle_intersector_moeller.h:80-113):
 
@@ -13,7 +13,8 @@ reference's precomputed-cross variant
 
 The division is deferred exactly like the reference (sign-flip instead
 of divide). Broadcasts a single triangle against any ray batch shape, or
-triangle batches against matching ray batches.
+triangle batches against matching ray batches. Also the Pluecker
+(watertight) variant and the barycentric hit point.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from ..core.math import cross, dot
 
 DEN_MIN = float(np.float32(1e-37))
+PLUECKER_EPS = float(np.float32(1e-8))
 
 
 def intersect_triangle(org, direction, tnear, tfar, v0, v1, v2,
@@ -49,3 +51,50 @@ def intersect_triangle(org, direction, tnear, tfar, v0, v1, v2,
     rcp = torch.where(abs_den > 0, 1.0 / abs_den.clamp_min(DEN_MIN),
                       torch.zeros_like(abs_den))
     return valid, t_s * rcp, u_s * rcp, v_s * rcp, ng
+
+
+def triangle_uv_and_point(u, v, v0, v1, v2):
+    """The hit point re-evaluated from barycentrics (the diff pass's
+    recompute-from-primID trick, SURVEY.md section 7.6)."""
+    return (v0 * (1.0 - u - v)[..., None] + v1 * u[..., None]
+            + v2 * v[..., None])
+
+
+def intersect_triangle_pluecker(org, direction, tnear, tfar, v0, v1, v2,
+                                backface_cull: bool = False):
+    """Pluecker-coordinate triangle test (triangle_intersector_pluecker.h):
+    the watertight variant of robust mode; the edge tests share their
+    terms between adjacent triangles, so a ray crossing a shared edge
+    hits at least one of them. Returns (valid, t, u, v, ng) like
+    intersect_triangle."""
+    e0 = v2 - v0
+    e1 = v0 - v1
+    e2 = v1 - v2
+    a0 = v0 - org
+    a1 = v1 - org
+    a2 = v2 - org
+    # signed edge volumes (Pluecker inner products)
+    u_ = dot(cross(a2 + a0, e0), direction)
+    v_ = dot(cross(a0 + a1, e1), direction)
+    w_ = dot(cross(a1 + a2, e2), direction)
+    uvw = u_ + v_ + w_
+    eps = PLUECKER_EPS * uvw.abs()
+    valid = torch.minimum(torch.minimum(u_, v_), w_) >= -eps
+    if not backface_cull:
+        valid = valid | (torch.maximum(torch.maximum(u_, v_), w_) <= eps)
+
+    ng = cross(e0, e1)  # == cross(v1 - v0, v2 - v0), Moeller's Ng
+    den = 2.0 * dot(ng, direction)
+    t_s = 2.0 * dot(a0, ng)
+    abs_den = den.abs()
+    sgn = torch.where(den >= 0, 1.0, -1.0).to(den.dtype)
+    t_scaled = t_s * sgn
+    valid = valid & (den != 0) & (abs_den * tnear < t_scaled) \
+        & (t_scaled <= abs_den * tfar)
+
+    rcp_uvw = torch.where(uvw.abs() > DEN_MIN, 1.0 / uvw,
+                          torch.zeros_like(uvw))
+    u_out = (u_ * rcp_uvw).clamp(0.0, 1.0)
+    v_out = (v_ * rcp_uvw).clamp(0.0, 1.0)
+    t_out = t_scaled / abs_den.clamp_min(DEN_MIN)
+    return valid, t_out, u_out, v_out, ng

@@ -25,10 +25,11 @@ the rays stay on their device; a pop waits once for the device to say
 which children any ray hits. The stack is a python list: unlike the JAX
 package's 96-entry array it cannot overflow.
 
-Used by the scene for `LineSegments` and for curves under
-`hair_accel=segment` (the segment soup), and by the torch-op hair
-cluster walk (traverse/hair.py) and the motion-blur curve walk
-(traverse/mb.py). `UserGeometry` itself is not ported yet.
+Used by the scene for `UserGeometry` (the user's `intersect_fn`, the
+ABI of scene/geometry.py::UserGeometry), for `LineSegments` and for
+curves under `hair_accel=segment` (the segment soup), and by the
+torch-op hair cluster walk (traverse/hair.py) and the motion-blur curve
+walk (traverse/mb.py).
 """
 from __future__ import annotations
 

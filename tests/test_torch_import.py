@@ -68,6 +68,14 @@ def test_import_and_tiny_scene_pull_in_no_jax():
         "assert h.valid.tolist() == [True, False], h.valid\n"
         "assert abs(float(h.t[0]) - 2.0) < 0.05, h.t\n"
         "assert sc.occluded(rays).tolist() == [True, False]\n"
+        "import embree_tpu_torch.rtcore as rtc\n"
+        "from embree_tpu_torch.render.tutorials import (\n"
+        "    instanced_geometry, user_geometry, lazy_geometry,\n"
+        "    intersection_filter, bvh_builder, bvh_access)\n"
+        "top = ett.Scene(dev)\n"
+        "top.attach(ett.Instance(sc, np.eye(3, 4) * 2))\n"
+        "top.commit()\n"
+        "assert top.intersect(rays).inst_id.tolist() == [0, -1]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'embree_tpu')]\n"
         "assert not bad, bad\n"
@@ -228,7 +236,12 @@ def test_no_try_around_the_launch():
                 "traverse/hair_kernel.py", "traverse/hair.py",
                 "traverse/user.py", "scene/curves.py", "build/hair.py",
                 "render/tutorials/hair_geometry.py",
-                "render/tutorials/curve_geometry.py"):
+                "render/tutorials/curve_geometry.py",
+                "build/twolevel.py", "build/user_builder.py", "rtcore.py",
+                "render/tutorials/instanced_geometry.py",
+                "render/tutorials/user_geometry.py",
+                "render/tutorials/lazy_geometry.py",
+                "render/tutorials/intersection_filter.py"):
         with open(os.path.join(PKG, rel)) as f:
             tree = ast.parse(f.read())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
