@@ -75,6 +75,15 @@ the public entry points:
     compressed child (B4, B5); the `instanced_geometry`, `user_geometry`,
     `intersection_filter`, `lazy_geometry`, `bvh_builder` and
     `bvh_access` tutorials;
+  * the wavefront pathtracer (phase 26): the `pathtracer` tutorial's
+    Cornell box through `make_app().run --benchmark` (256x256, 4 spp)
+    and at 1024x1024 (B2), glass_sphere.xml through `load_xml` at 64x64,
+    6 seeds x 8 spp held against the reference binary's render by
+    16x16-block means, and the same scene with its glass sphere replaced
+    by main's 998,284 triangles at 1024x1024 (B1 and B2): frame ms, rays
+    traced, launches, the card's busy share; each 64x64 1-spp frame
+    against this package's CPU render with the same uniforms, and every
+    B1 and B2 launch of that frame against its plain version;
   * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
     all ten kernel entries against their plain versions, and 100,000
     rays from inside closed surfaces through B2, B6, B1, B4 and B5, none
@@ -156,6 +165,11 @@ from embree_tpu_torch.traverse import cbvh as cbvh_mod  # noqa: E402
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     bvh_access, bvh_builder, instanced_geometry, intersection_filter,
     lazy_geometry, user_geometry)
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    pathtracer as pt_tutorial)
+from embree_tpu_torch.render.materials import (  # noqa: E402
+    MAT_DIELECTRIC_SOLID)
+from embree_tpu_torch.render.xmlloader import load_xml  # noqa: E402
 from embree_tpu_torch.traverse import cbvh_kernel as ck  # noqa: E402
 from embree_tpu_torch.traverse import hair_kernel as hk  # noqa: E402
 from embree_tpu_torch.traverse.hair import _cone_hit  # noqa: E402
@@ -277,6 +291,31 @@ RIBBON_FLOPS = 74
 # a ray rotated into a cluster's frame: origin and direction, 9 products
 # and 6 sums each
 ROT_FLOPS = 30
+# the pathtracer (phase 26): pt-cornell (the tutorial's Cornell box at its
+# default 256x256 and at 1024x1024), pt-glass (glass_sphere.xml at 64x64,
+# 6 seeds x 8 spp against the reference binary's render) and
+# pt-glass-main (its sphere replaced by main's 998,284 triangles: B1
+# serves the incoherent bounces and the shadow rays); spp of a timed frame,
+# the frames timed, and the 64x64 1-spp frame held card against CPU with
+# every B1 and B2 launch against its plain version (there ROWTRACE_MIN_RAYS
+# is lowered to PT_CHECK_MIN_RAYS so that B1 serves the incoherent bounces
+# of a treelet scene at that size). Before it is timed, a 1-spp frame at
+# the timed size, with the kernels chosen as the main path chooses them,
+# holds every launch against its plain version on a strided slice of at
+# most 2^PT_SLICE_LOG2 of its rays
+PT_SIZES = ((256, 256), (1024, 1024))
+PT_SPP = 4
+PT_FRAMES = 5
+PT_SLICE_LOG2 = 16
+PT_SEED = 0x9A7
+PT_GLASS_XML = os.path.join(GOLDEN_DIR, "glass_sphere.xml")
+PT_GLASS_SIZE = 64
+PT_GLASS_SEEDS = 6
+PT_GLASS_SPP = 8
+PT_GLASS_CAMERA = dict(from_=(0.0, 1.2, 2.6), to=(0.0, 0.6, 0.0), fov=90.0)
+PT_MAIN_SPHERE = ((0.0, 0.75, 0.0), 0.7, SCENE_RES)
+PT_CHECK_SIZE = 64
+PT_CHECK_MIN_RAYS = 1024
 
 
 T_START = time.perf_counter()
@@ -2190,26 +2229,32 @@ def fold_against_plain(label, scene, rays, coherent=False):
 
 def device_profile(fn):
     """One call of `fn` under torch.profiler (CUPTI): the summed device
-    time of its kernels (ms), and the device time (ms) of each PyTorch
-    op and each kernel launched outside one (B2's through ctypes), most
-    first; (0.0, []) where the profiler saw no device time."""
+    time of its kernels (ms), the device time (ms) of each PyTorch op and
+    each kernel launched outside one (B1's and B2's through ctypes), most
+    first, the profiled call's own wall time (ms, host clock,
+    synchronized) and the number of kernels it launched; (0.0, [], ms, 0)
+    where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = prof.key_averages()
     kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
     by_op = sorted([(e.self_device_time_total / 1e3, e.key) for e in rows
                     if e.device_type == DeviceType.CPU
                     and e.self_device_time_total > 0]
                    + [(e.self_device_time_total / 1e3, e.key)
-                      for e in kernels if "packet_kernel" in e.key],
+                      for e in kernels if "packet_kernel" in e.key
+                      or "rowtrace2_kernel" in e.key],
                    reverse=True)
-    return sum(e.self_device_time_total for e in kernels) / 1e3, by_op
+    return (sum(e.self_device_time_total for e in kernels) / 1e3, by_op,
+            wall_ms, sum(e.count for e in kernels))
 
 
 def grid_instances(rng):
@@ -2445,7 +2490,7 @@ def instance_phase(device, main_scene):
             + ", ".join(f"{x:.3f}" for x in runs) + "); hits equal bit for "
             "bit")
     label = f"intersect, 2^{LOG2_RAYS} incoherent rays"
-    dev_ms, rows = device_profile(lambda: top.intersect(rays))
+    dev_ms, rows, _, _ = device_profile(lambda: top.intersect(rays))
     if dev_ms > 0:
         b2 = sum(ms for ms, k in rows if "packet_kernel" in k)
         log(f"  inst-grid {label} under torch.profiler: its kernels "
@@ -2588,6 +2633,352 @@ def instance_phase(device, main_scene):
             + ("; ".join(lines) if name == "bvh_builder" else lines[-1]))
     return {"packet": max(err, tut_err), "rowtrace2": b1_err,
             "cbvh": cb_err, "cbvh_occluded": cb_err}
+
+
+class KeyedSampler:
+    """The pathtracer's uniforms from numpy generators keyed by (seed,
+    sample, bounce, light): the same numbers on the card and on the CPU,
+    whatever else the two renders draw."""
+
+    def __init__(self, seed, n, device):
+        self.seed, self.n, self.device = seed, n, device
+
+    def _draw(self, key, k):
+        a = np.random.default_rng([self.seed, *key]).random(
+            (self.n, k), dtype=np.float32)
+        return torch.from_numpy(a).to(self.device)
+
+    def pixel(self, s):
+        return self._draw((s, 0), 2)
+
+    def light(self, s, bounce, li):
+        return self._draw((s, 1, bounce, li), 2)
+
+    def bsdf(self, s, bounce):
+        return self._draw((s, 2, bounce), 3)
+
+
+@contextlib.contextmanager
+def checked_launches(errs, limit=None):
+    """Every B1 and B2 launch that a request makes while the block runs is
+    held against its plain version on the same inputs: t at 0 ulp and prim
+    equal (closest), the answers equal (any hit). With `limit`, a launch
+    of more rays is compared on a strided slice of `limit` of them (the
+    kernel still runs on all). `errs` collects the largest error of each
+    kernel, the launches checked and the rays compared."""
+    names = ("intersect_packet_kernel_raw", "occluded_packet_kernel",
+             "intersect_rowtrace2")
+    kernel = {k: getattr(scene_mod, k) for k in names}
+
+    def part(rays, ray_mask):
+        """(the rays compared, their mask, their flat indices or None)."""
+        n = rays.tnear.numel()
+        if limit is None or n <= limit:
+            return rays, ray_mask, None
+        sel = torch.arange(0, n, -(-n // limit), device=rays.tnear.device)
+        sub = Rays(rays.org.reshape(-1, 3)[sel], rays.dir.reshape(-1, 3)[sel],
+                   rays.tnear.reshape(-1)[sel], rays.tfar.reshape(-1)[sel])
+        return sub, (None if ray_mask is None
+                     else ray_mask.reshape(-1)[sel]), sel
+
+    def picked(a, sel):
+        a = a.reshape(-1)
+        return a if sel is None else a[sel]
+
+    def tally(name, sub):
+        errs[name + "_checked"] = errs.get(name + "_checked", 0) + 1
+        errs[name + "_rays"] = errs.get(name + "_rays", 0) + sub.tnear.numel()
+
+    def closest(name, t, prim, tp, pp):
+        e = ulp_distance(t, tp)
+        if e != 0 or not torch.equal(prim, pp):
+            raise AssertionError(f"{name}: a pathtracer launch differs from "
+                                 f"its plain version ({e} ulp)")
+        errs[name] = max(errs.get(name, 0.0), float(e))
+
+    def packet_raw(ps, rays, cull=False, ray_mask=None):
+        t, prim = kernel["intersect_packet_kernel_raw"](ps, rays, cull,
+                                                        ray_mask)
+        sub, mask, sel = part(rays, ray_mask)
+        tp, pp = pk.packet_plain(ps, sub, False, cull, ray_mask=mask)
+        closest("packet", picked(t, sel), picked(prim, sel), tp.reshape(-1),
+                pk._to_orig(ps, pp).reshape(-1))
+        tally("packet", sub)
+        return t, prim
+
+    def packet_occluded(ps, rays, cull=False, ray_mask=None):
+        occ = kernel["occluded_packet_kernel"](ps, rays, cull, ray_mask)
+        sub, mask, sel = part(rays, ray_mask)
+        tp, _ = pk.packet_plain(ps, sub, True, cull, ray_mask=mask)
+        bad = int((picked(occ, sel) != (tp.reshape(-1) == -math.inf)).sum())
+        if bad:
+            raise AssertionError(f"packet any hit: {bad} rays differ from "
+                                 "the plain version")
+        tally("packet", sub)
+        return occ
+
+    def treelet(ts, rays, occluded=False, cull=False):
+        t, prim = kernel["intersect_rowtrace2"](ts, rays, occluded, cull)
+        sub, _, sel = part(rays, None)
+        tp, pp = rt2.rowtrace2_plain(ts, sub, occluded, cull)
+        closest("rowtrace2", picked(t, sel), picked(prim, sel),
+                tp.reshape(-1), pp.reshape(-1))
+        tally("rowtrace2", sub)
+        return t, prim
+
+    swap = dict(zip(names, (packet_raw, packet_occluded, treelet)))
+    for k, fn in swap.items():
+        setattr(scene_mod, k, fn)
+    try:
+        yield errs
+    finally:
+        for k, fn in kernel.items():
+            setattr(scene_mod, k, fn)
+
+
+def expect_requests(label, lc, counts):
+    """One B1 or B2 launch a request of the pathtracer's frame."""
+    if lc.packet + lc.rowtrace2 != counts["intersect"] + counts["occluded"]:
+        raise AssertionError(f"{label}: {lc.packet} B2 and {lc.rowtrace2} "
+                             f"B1 launches for {counts} requests")
+
+
+def pt_check(label, states, camera):
+    """The card's 64x64 1-spp frame (`states[0]`) against this package's
+    CPU render (`states[1]`) with the same uniforms (KeyedSampler), every
+    B1 and B2 launch of the card's frame against its plain version,
+    ROWTRACE_MIN_RAYS lowered to PT_CHECK_MIN_RAYS in both. Returns the
+    errors and the launches checked."""
+    size = (PT_CHECK_SIZE, PT_CHECK_SIZE)
+    n = PT_CHECK_SIZE * PT_CHECK_SIZE
+    min_rays = scene_mod.ROWTRACE_MIN_RAYS
+    scene_mod.ROWTRACE_MIN_RAYS = PT_CHECK_MIN_RAYS
+    errs = {}
+    try:
+        imgs, secs = [], []
+        for on_card, st in zip((True, False), states):
+            sampler = KeyedSampler(PT_SEED, n, st["cscene"].device)
+            t0 = time.perf_counter()
+            if on_card:
+                counts = {}
+                with checked_launches(errs), Launches() as lc:
+                    img, _ = pt_tutorial.render_frame(
+                        st, camera, size, 1, PT_SEED, sampler, counts)
+                    torch.cuda.synchronize()
+                expect_requests(label, lc, counts)
+            else:
+                img, _ = pt_tutorial.render_frame(st, camera, size, 1,
+                                                  PT_SEED, sampler)
+            secs.append(time.perf_counter() - t0)
+            imgs.append(img.cpu().numpy())
+    finally:
+        scene_mod.ROWTRACE_MIN_RAYS = min_rays
+    a, b = imgs
+    off = (np.abs(a - b) > 1e-4 * np.abs(b) + 1e-5).any(-1)
+    share = 1.0 - float(off.mean())
+    rel = abs(float(a.mean()) / float(b.mean()) - 1.0)
+    if not (np.isfinite(a).all() and share >= 0.98 and rel <= 1e-3
+            and b.mean() > 0.01):
+        raise AssertionError(f"{label}: card against CPU: {share:.4%} of "
+                             f"the pixels agree, means {a.mean():.6f} / "
+                             f"{b.mean():.6f}")
+    log(f"  {label} {PT_CHECK_SIZE}x{PT_CHECK_SIZE}, 1 spp, the same "
+        f"uniforms: {share:.4%} of the card's pixels within 1e-4 relative + "
+        f"1e-5 of the CPU render (budget 98 %), max |diff| "
+        f"{float(np.abs(a - b).max()):.3g}, means {a.mean():.6f} / "
+        f"{b.mean():.6f} ({rel:.2e} relative); card {secs[0]:.1f} s "
+        f"(with the plain versions), CPU {secs[1]:.1f} s; "
+        f"{errs.get('packet_checked', 0)} B2 and "
+        f"{errs.get('rowtrace2_checked', 0)} B1 launches of the card's frame "
+        "each equal to its plain version (t at 0 ulp, prim equal, any hit "
+        "equal)")
+    return errs
+
+
+def pt_measure(label, state, camera, size, spp):
+    """A 1-spp frame at `size` with every B1 and B2 launch held against
+    its plain version on at most 2^PT_SLICE_LOG2 of its rays (the kernels
+    chosen as the main path chooses them); then frame ms (host clock,
+    synchronized, the median of PT_FRAMES, each printed), rays a frame
+    (the live rays of every request), Mray/s, B1 and B2 launches a
+    frame, and for a 1-spp frame under torch.profiler (whose processing
+    grows with the kernels it records) its wall time, the card's busy
+    share of it, the kernels' share of its device time and the kernels it
+    launched. The errors of the checked frame are under "errs" (`checked_launches`)."""
+    w, h = size
+    chk, counts = {}, {}
+    t0 = time.perf_counter()
+    with checked_launches(chk, 1 << PT_SLICE_LOG2), Launches() as lc:
+        pt_tutorial.render_frame(state, camera, size, 1, PT_SEED,
+                                 counts=counts)
+        torch.cuda.synchronize()
+    expect_requests(label, lc, counts)
+    log(f"  {label} {w}x{h}, 1 spp ({time.perf_counter() - t0:.1f} s with "
+        f"the plain versions): {chk.get('packet_checked', 0)} B2 launches "
+        f"({chk.get('packet_rays', 0)} rays compared) and "
+        f"{chk.get('rowtrace2_checked', 0)} B1 launches "
+        f"({chk.get('rowtrace2_rays', 0)} rays compared, at most "
+        f"2^{PT_SLICE_LOG2} a launch) each equal to its plain version (t at "
+        f"0 ulp, prim equal, any hit equal); {counts['rays']} rays")
+
+    def frame():
+        counts.clear()
+        return pt_tutorial.render_frame(state, camera, size, spp, PT_SEED,
+                                        counts=counts)
+
+    dts = []
+    for _ in range(PT_FRAMES):
+        t0 = time.perf_counter()
+        with Launches() as lc:
+            img, _ = frame()
+            torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    tally = dict(counts)
+    ms = 1e3 * float(np.median(dts))
+    img = img.cpu().numpy()
+    if not (np.isfinite(img).all() and img.shape == (h, w, 3)
+            and img.mean() > 0.01):
+        raise AssertionError(f"{label}: the frame is not finite or empty")
+    expect_requests(label, lc, tally)
+    bound = spp * w * h * 2 * pt_tutorial.MAX_PATH_LENGTH
+    dev_ms, rows, prof_ms, n_kernels = device_profile(
+        lambda: pt_tutorial.render_frame(state, camera, size, 1, PT_SEED))
+    if dev_ms > 0:
+        k_ms = {k: sum(t for t, key in rows if k in key)
+                for k in ("packet_kernel", "rowtrace2_kernel")}
+        busy = (f"a 1-spp frame under torch.profiler took {prof_ms:.1f} "
+                f"ms, its {n_kernels} kernels {dev_ms:.1f} ms of device time ("
+                f"{100 * dev_ms / prof_ms:.0f} % busy), of it B2 "
+                f"{k_ms['packet_kernel']:.1f} ms and B1 "
+                f"{k_ms['rowtrace2_kernel']:.1f} ms ("
+                f"{100 * sum(k_ms.values()) / dev_ms:.0f} % of the device "
+                "time); by op: " + "; ".join(
+                    f"{key[:32]} {t:.1f} ms" for t, key in rows[:8]))
+    else:
+        busy = "busy share not measured (the profiler saw no device time)"
+    log(f"  {label} {w}x{h}, {spp} spp: {ms:.1f} ms a frame (median of "
+        f"{PT_FRAMES}: " + ", ".join(f"{1e3 * x:.1f}" for x in dts)
+        + f"), {tally['rays']} rays ({tally['intersect']} closest-hit and "
+        f"{tally['occluded']} shadow requests; the JAX tutorial's bound "
+        f"{bound}), {tally['rays'] / ms / 1e3:.1f} Mray/s; "
+        f"{lc.packet} B2 and {lc.rowtrace2} B1 launches a frame; {busy}")
+    return {"ms": ms, "rays": tally["rays"], "b2": lc.packet,
+            "b1": lc.rowtrace2, "dev_ms": dev_ms, "errs": chk}
+
+
+def glass_block_gate(img, ref):
+    """tests/test_glass.py:197-244: under 10 % of the 16x16 blocks out of
+    tolerance, the global mean within 5 %."""
+    def blocks(a):
+        return a.reshape(4, 16, 4, 16, 3).mean(axis=(1, 3))
+
+    bi, br = blocks(img), blocks(ref)
+    err = np.abs(bi - br)
+    bad = err > 0.08 * np.maximum(br, 0.02) + 0.012
+    rel = abs(float(bi.mean()) / float(br.mean()) - 1.0)
+    if not (bad.mean() < 0.10 and rel <= 0.05):
+        raise AssertionError(f"pt-glass: {int(bad.sum())}/{bad.size} blocks "
+                             f"out of tolerance, means {bi.mean():.4f} / "
+                             f"{br.mean():.4f}")
+    return int(bad.sum()), bad.size, float(err.max()), rel
+
+
+def pathtracer_phase():
+    """Phase 26: the pathtracer tutorial on pt-cornell (the Cornell box,
+    256x256 through `make_app().run --benchmark` and 1024x1024, B2 only),
+    pt-glass (glass_sphere.xml through `load_xml`, 64x64, 6 seeds x 8 spp
+    against ref_glass_64.pfm) and pt-glass-main (the sphere replaced by
+    main's 998,284 triangles, 1024x1024: B1 and B2): frame ms, rays,
+    Mray/s, launches, busy share; the card against the CPU at 64x64, and
+    every launch of a 1-spp frame at each timed size against its plain
+    version. Returns the largest error of B1 and B2 (0)."""
+    errs = {"packet": 0.0, "rowtrace2": 0.0}
+
+    def fold(e):
+        for k in errs:
+            errs[k] = max(errs[k], e.get(k, 0.0))
+
+    dev = ett.Device("ignore_config_files=1")
+    cpu = ett.Device("ignore_config_files=1", device="cpu")
+    log("[26a] pt-cornell: the tutorial's Cornell box (17 quads, B2)")
+    app = pt_tutorial.make_app()
+    out = io.StringIO()
+    with Launches() as lc, contextlib.redirect_stdout(out):
+        rc = app.run(["--benchmark", "1", "3", "-rtcore",
+                      "ignore_config_files=1"])
+        torch.cuda.synchronize()
+    print(out.getvalue(), end="")
+    keys = dict(line.split() for line in out.getvalue().splitlines()
+                if line.startswith("BENCHMARK_RENDER_"))
+    if rc != 0 or "BENCHMARK_RENDER_AVG" not in keys:
+        raise AssertionError(f"pathtracer returned {rc}")
+    log(f"  pt-cornell through make_app().run --benchmark 1 3 at "
+        f"{app.default_size[0]}x{app.default_size[1]}, 4 spp: "
+        f"{float(keys['BENCHMARK_RENDER_AVG']):.2f} frames/s, "
+        f"{float(keys['BENCHMARK_RENDER_MRAYPS_AVG']):.1f} Mray/s "
+        f"(host clock; {lc.packet} B2 launches in 5 frames)")
+    cornell = [pt_tutorial.build_cornell_scene(d) for d in (dev, cpu)]
+    fold(pt_check("pt-cornell", cornell, app.camera))
+    for size in PT_SIZES:
+        r = pt_measure("pt-cornell", cornell[0], app.camera, size, PT_SPP)
+        fold(r["errs"])
+        if r["b1"] != 0:
+            raise AssertionError("pt-cornell launched B1")
+
+    log("[26b] pt-glass: glass_sphere.xml through load_xml (B2)")
+    xs = load_xml(PT_GLASS_XML)
+    glass = [pt_tutorial.build_xml_scene(xs, d) for d in (dev, cpu)]
+    if int((glass[0]["materials"].type == MAT_DIELECTRIC_SOLID).sum()) != 1:
+        raise AssertionError("pt-glass: no dielectric sphere")
+    gcam = Camera(**PT_GLASS_CAMERA)
+    fold(pt_check("pt-glass", glass, gcam))
+    size = (PT_GLASS_SIZE, PT_GLASS_SIZE)
+    r = pt_measure("pt-glass", glass[0], gcam, size, PT_GLASS_SPP)
+    fold(r["errs"])
+    if r["b1"] != 0:
+        raise AssertionError("pt-glass launched B1")
+    t0 = time.perf_counter()
+    acc = None
+    for k in range(PT_GLASS_SEEDS):
+        im, _ = pt_tutorial.render_frame(glass[0], gcam, size, PT_GLASS_SPP,
+                                         101 + k)
+        acc = im if acc is None else acc + im
+    img = (acc / PT_GLASS_SEEDS).cpu().numpy()
+    glass_s = time.perf_counter() - t0
+    ref = read_pfm(os.path.join(GOLDEN_DIR, "ref_glass_64.pfm"))
+    bad, nblk, emax, rel = glass_block_gate(img, ref)
+    log(f"  pt-glass {PT_GLASS_SIZE}x{PT_GLASS_SIZE}, {PT_GLASS_SEEDS} "
+        f"seeds x {PT_GLASS_SPP} spp on the card ({glass_s:.1f} s): {bad} of "
+        f"{nblk} 16x16 blocks out of tolerance against ref_glass_64.pfm "
+        f"(budget under 10 %), max block error {emax:.4f}, global mean "
+        f"{rel:.2%} off (budget 5 %)")
+
+    log("[26c] pt-glass-main: the sphere as main's 998,284 triangles (B1, B2)")
+    big = []
+    sphere = triangle_sphere(*PT_MAIN_SPHERE)
+    for d in (dev, cpu):
+        xs = load_xml(PT_GLASS_XML)
+        xs.geometries = [
+            (ett.TriangleMesh(*sphere), m)
+            if xs.materials[m].get("type") == MAT_DIELECTRIC_SOLID else (g, m)
+            for g, m in xs.geometries]
+        t0 = time.perf_counter()
+        big.append(pt_tutorial.build_xml_scene(xs, d))
+        if d is dev:
+            torch.cuda.synchronize()
+            commit_s = time.perf_counter() - t0
+    cs = big[0]["cscene"]
+    n_sphere = 2 * PT_MAIN_SPHERE[2] * (PT_MAIN_SPHERE[2] - 1)
+    if cs.rowtrace is None or cs.tris.num_prims != n_sphere + 2:
+        raise AssertionError("pt-glass-main: no treelet scene")
+    log(f"  pt-glass-main: {cs.tris.num_prims} triangles, commit "
+        f"{commit_s:.2f} s ({cs.rowtrace.num_treelets} treelets)")
+    fold(pt_check("pt-glass-main", big, gcam))
+    r = pt_measure("pt-glass-main", big[0], gcam, PT_SIZES[1], PT_SPP)
+    fold(r["errs"])
+    if r["b1"] == 0:
+        raise AssertionError("pt-glass-main: B1 served no request")
+    return errs
 
 
 def main() -> int:
@@ -3653,6 +4044,10 @@ def main() -> int:
         "ground plane; instanced main and compressed children; six tutorials")
     inst = instance_phase(dev.device, scene)
 
+    # -- 26. the pathtracer: pt-cornell, pt-glass, pt-glass-main ------------
+    log("[26] pathtracer: pt-cornell, pt-glass and pt-glass-main")
+    pt_err = pathtracer_phase()
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
     # rays (the counting plain version). packet: ms and bound_ms belong to
@@ -3673,14 +4068,17 @@ def main() -> int:
     # max_abs_err includes phase 3f's NaN and Inf lanes, and those of B1,
     # B4 and B5 phase 3g's watertight rays; the launches and errors of
     # packet, rowtrace2, cbvh and cbvh_occluded include phase 25's instanced
-    # requests (whole folds held against the plain versions)
+    # requests (whole folds held against the plain versions); those of
+    # packet and rowtrace2 phase 26's pathtracer frames (every launch of
+    # the checked 64x64 frames held against its plain version)
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
         "replaces": "embree_tpu/traverse/rowtrace2.py:153",
         "launches": Launches.totals["rowtrace2"],
         "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"],
-                           wt_err["rowtrace2"], inst["rowtrace2"]),
+                           wt_err["rowtrace2"], inst["rowtrace2"],
+                           pt_err["rowtrace2"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": nb1,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -3690,7 +4088,8 @@ def main() -> int:
         "replaces": "embree_tpu/traverse/pallas_packet.py:261",
         "launches": Launches.totals["packet"],
         "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
-                           lane_err["packet"], tut_pk_err, inst["packet"]),
+                           lane_err["packet"], tut_pk_err, inst["packet"],
+                           pt_err["packet"]),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
         "plain_rays": n,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],

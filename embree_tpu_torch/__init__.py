@@ -19,13 +19,15 @@ instance through its child's own kernels; the rtcore API facade
 (`rtcore.py`, `rtcBuildBVH` through `build/user_builder.py`); the
 differentiable hit (`diff.hit`); rtcInterpolate (`Scene.interpolate`,
 `interpolate_normal`: positions, normals, vertex attributes and the
-analytic limit-surface derivatives of subdiv/patches.py); the OBJ/MTL
-loader, textures and the material table; the `triangle_geometry`,
+analytic limit-surface derivatives of subdiv/patches.py); the OBJ/MTL,
+XML, PLY and Corona scene loaders, textures, the materials (evaluation
+and sampling, Medium tracking) and lights; the wavefront `pathtracer`;
+the `convert` tool; the `triangle_geometry`,
 `displacement_geometry`, `motion_blur_geometry`, `hair_geometry`,
 `curve_geometry`, `viewer`, `interpolation`, `subdivision_geometry`,
 `instanced_geometry`, `user_geometry`, `intersection_filter`,
-`lazy_geometry`, `bvh_builder` and `bvh_access` tutorials
-(`render.tutorials`).
+`lazy_geometry`, `bvh_builder`, `bvh_access` and `viewer_stream`
+tutorials (`render.tutorials`).
 
 Quick start::
 

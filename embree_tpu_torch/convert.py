@@ -9,7 +9,10 @@ subdivision accel, so that both packages trace the same tiles, and
 `mb_accel_from_reference` for a motion-blur accel and its packed rows,
 `hair_clusters_from_reference` for the hair clusters of a curve
 geometry, `mb_curves_from_reference` for a motion-blur curve accel and
-`instance_entries_from_reference` for the instances of a scene.
+`instance_entries_from_reference` for the instances of a scene;
+`material_table_from_reference` and `light_table_from_reference` carry
+the renderer's material and light tables across, so that both packages
+shade the same scene.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 from .build.bvh import BVH
 from .build.cbvh import CompressedTiles
 from .build.treelets import BLOCK_ROWS, TreeletScene, compact_treelets
+from .render.lights import LightTable
+from .render.materials import MaterialTable
 from .scene.prims import TrianglePrims
 from .scene.scene import CommittedScene, HairEntry, InstanceEntry
 from .traverse.cbvh import CompressedAccel
@@ -267,3 +272,26 @@ def instance_entries_from_reference(arrays, device) -> tuple:
             cull_upper=None if hi is None else _tensor(hi, np.float32,
                                                        device, (-1, 3))))
     return tuple(out)
+
+
+def material_table_from_reference(arrays: dict, device) -> MaterialTable:
+    """The MaterialTable of the JAX package's: `arrays` maps each field
+    name (`type` (M,) i32, `kd`, `ks`, `le`, `trans_in`, `trans_out`
+    (M, 3) f32, `ns`, `d`, `eta`, `k`, `rough`, `eta_out` (M,) f32) to a
+    numpy array."""
+    device = torch.device(device)
+    return MaterialTable(**{
+        k: _tensor(arrays[k], np.int32 if k == "type" else np.float32,
+                   device) for k in MaterialTable._fields})
+
+
+def light_table_from_reference(arrays: dict, device) -> LightTable:
+    """The LightTable of the JAX package's: `arrays` holds `type` (a
+    sequence of ints), `pos`, `e1`, `e2`, `radiance` (L, 3), `angles`
+    (L, 2) and `ambient` (3,) f32, as numpy arrays."""
+    device = torch.device(device)
+    return LightTable(
+        np.asarray(arrays["type"], np.int32),
+        *(_tensor(arrays[k], np.float32, device, s) for k, s in (
+            ("pos", (-1, 3)), ("e1", (-1, 3)), ("e2", (-1, 3)),
+            ("radiance", (-1, 3)), ("angles", (-1, 2)), ("ambient", (3,)))))

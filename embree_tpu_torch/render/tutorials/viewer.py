@@ -17,39 +17,38 @@ accel (obj_loader.cpp:528, tutorial.cpp:1104) at `--subdLvl` /
 A frame is one coherent batch traced in Morton pixel order (the
 compressed kernel for the subdivision surfaces, the packet kernel for
 triangles), the smooth-normal pass, the shading, and one unsort of the
-RGB image. Only `.obj` input is read: the `.xml`, `.scn` and `.ply`
-loaders are not ported yet.
+RGB image. `-i` takes `.obj`, `.xml` (render/xmlloader.py), `.scn`
+(render/coronaloader.py) and `.ply` (render/plyloader.py) scenes; only
+an OBJ's faces become subdivision surfaces under `--compress.*`.
 """
 from __future__ import annotations
 
 import math
-import os
 
 import numpy as np
 import torch
 
-from ...core.device import Device, Error, RaytracerError
+from ...core.device import Device
 from ...core.math import dot, normalize
 from ...core.rayhit import Rays
 from ...scene.geometry import SubdivMesh
 from ...scene.scene import Scene, scene_intersect
 from ..camera import Camera, pixel_coords, pixel_morton_order_device
-from ..materials import make_material_table
+from ..coronaloader import load_corona
+from ..materials import MAT_OBJ, make_material_table
 from ..objloader import load_obj
+from ..plyloader import load_ply
 from ..texture import make_texture_set, sample_texture
 from ..tutorial_app import TutorialApplication
+from ..xmlloader import load_xml
 
 
 def build_scene(obj_path: str, subdiv_mode=None, subdiv_level=5,
                 comp_level=2, rtcore: str = ""):
-    """Load `obj_path` and commit it. `subdiv_mode` is a `subdiv_accel`
-    value such as "bvh4.compressed.leaf" (the faces become a SubdivMesh)
-    or None (triangles); `rtcore` is appended to the Device config
-    string (`device=cpu` runs on the CPU)."""
-    ext = os.path.splitext(obj_path)[1].lower()
-    if ext in (".xml", ".scn", ".ply"):
-        raise RaytracerError(Error.INVALID_OPERATION,
-                             f"not ported yet: the {ext} scene loader")
+    """Load `obj_path` (.obj, .xml, .scn or .ply) and commit it.
+    `subdiv_mode` is a `subdiv_accel` value such as "bvh4.compressed.leaf"
+    (an OBJ's faces become a SubdivMesh) or None (triangles); `rtcore` is
+    appended to the Device config string (`device=cpu` runs on the CPU)."""
     cfg = "ignore_config_files=1"
     if subdiv_mode:
         cfg += f",subdiv_accel={subdiv_mode}"
@@ -57,8 +56,19 @@ def build_scene(obj_path: str, subdiv_mode=None, subdiv_level=5,
         cfg += f",{rtcore}"
     dev = Device(cfg)
     scene = Scene(dev)
-    geometries, mats = load_obj(obj_path,
-                                subdiv_mode=subdiv_mode is not None)
+    low = obj_path.lower()
+    if low.endswith(".xml"):
+        xs = load_xml(obj_path)
+        geometries, mats = xs.geometries, xs.materials
+    elif low.endswith(".scn"):
+        xs = load_corona(obj_path)
+        geometries, mats = xs.geometries, xs.materials
+    elif low.endswith(".ply"):
+        geometries = [(load_ply(obj_path), 0)]
+        mats = [{"type": MAT_OBJ, "kd": (0.5, 0.5, 0.5)}]
+    else:
+        geometries, mats = load_obj(obj_path,
+                                    subdiv_mode=subdiv_mode is not None)
     geom_mat = []
     prim_base = {}
     uv_all = []

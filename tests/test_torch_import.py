@@ -241,7 +241,12 @@ def test_no_try_around_the_launch():
                 "render/tutorials/instanced_geometry.py",
                 "render/tutorials/user_geometry.py",
                 "render/tutorials/lazy_geometry.py",
-                "render/tutorials/intersection_filter.py"):
+                "render/tutorials/intersection_filter.py",
+                "render/materials.py", "render/lights.py",
+                "render/xmlloader.py", "render/plyloader.py",
+                "render/coronaloader.py", "render/tutorials/pathtracer.py",
+                "render/tutorials/convert.py", "render/tutorials/viewer.py",
+                "render/tutorials/viewer_stream.py"):
         with open(os.path.join(PKG, rel)) as f:
             tree = ast.parse(f.read())
         tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -320,6 +325,46 @@ def test_hair_scene_and_tutorials_pull_in_no_jax():
         "    st = mod.build_scene(dev)\n"
         "    img, _ = mod.render_frame(st, mod.make_app().camera, (16, 12))\n"
         "    assert img.shape == (12, 16, 3) and float(img.max()) > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'embree_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('PORT_OK')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "PORT_OK" in out.stdout
+
+
+def test_pathtracer_loaders_and_tools_pull_in_no_jax():
+    """In a fresh interpreter: import every module of the pathtracer
+    slice, load an XML scene, render it and the Cornell box through the
+    pathtracer on the CPU, open it in the viewer and viewer_stream, and
+    write it back through the convert tool."""
+    code = (
+        "import sys, os, tempfile\n"
+        "import embree_tpu_torch as ett\n"
+        "from embree_tpu_torch.render import (materials, lights, xmlloader,\n"
+        "    plyloader, coronaloader)\n"
+        "from embree_tpu_torch import convert\n"
+        "from embree_tpu_torch.render.camera import Camera\n"
+        "from embree_tpu_torch.render.tutorials import (pathtracer as pt,\n"
+        "    viewer, viewer_stream, convert as tool)\n"
+        "xml = os.path.join('tests', 'golden', 'glass_sphere.xml')\n"
+        "dev = ett.Device('ignore_config_files=1', device='cpu')\n"
+        "for st in (pt.build_cornell_scene(dev),\n"
+        "           pt.build_xml_scene(xmlloader.load_xml(xml), dev)):\n"
+        "    img, rays = pt.render_frame(st, Camera(from_=(0.5, 1, 2.4),\n"
+        "                                to=(0.5, 0.5, 0)), (8, 6), spp=1)\n"
+        "    assert img.shape == (6, 8, 3) and rays > 0\n"
+        "st = viewer.build_scene(xml, rtcore='device=cpu')\n"
+        "a, _ = viewer.render_frame(st, Camera(from_=(0, 1.2, 2.6),\n"
+        "                           to=(0, 0.6, 0)), (8, 6))\n"
+        "b, _ = viewer_stream.render_frame(st, Camera(from_=(0, 1.2, 2.6),\n"
+        "                                  to=(0, 0.6, 0)), (8, 6))\n"
+        "assert float(a.max()) > 0 and float(b.max()) > 0\n"
+        "out = os.path.join(tempfile.mkdtemp(), 'o.xml')\n"
+        "assert tool.main(['-i', xml, '-o', out]) == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'embree_tpu')]\n"
         "assert not bad, bad\n"

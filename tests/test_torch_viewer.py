@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-import embree_tpu_torch as ett
 from embree_tpu.render import materials as jmat
 from embree_tpu.render import objloader as jobj
 from embree_tpu.render import texture as jtex
@@ -227,8 +226,7 @@ def test_bomberman_matches_the_reference_render(bomberman):
 
 def test_viewer_command_line(tmp_path, cube_obj):
     """`-i`, `--compress.leaf`, `--subdLvl` and `--compLvl` reach the
-    commit and a PPM is written; the loaders that are not ported raise
-    "not ported yet"."""
+    commit and a PPM is written; `-i` also takes a `.ply` scene."""
     out = tmp_path / "v.ppm"
     app = viewer.make_app()
     built, build = [], app.build_scene
@@ -238,10 +236,14 @@ def test_viewer_command_line(tmp_path, cube_obj):
                     "--benchmark", "0", "1", "-rtcore", "device=cpu"]) == 0
     assert read_ppm(str(out)).shape == (16, 24, 3)
     assert app.args.subdiv_mode == "bvh4.compressed.leaf"
-    for ext in (".xml", ".scn", ".ply"):
-        with pytest.raises(ett.RaytracerError, match="not ported yet") as e:
-            viewer.build_scene(str(tmp_path / f"s{ext}"), rtcore="device=cpu")
-        assert e.value.code == ett.Error.INVALID_OPERATION
+    ply = tmp_path / "s.ply"
+    ply.write_text("ply\nformat ascii 1.0\nelement vertex 3\n"
+                   "property float x\nproperty float y\nproperty float z\n"
+                   "element face 1\nproperty list uchar int vertex_indices\n"
+                   "end_header\n0 0 0\n1 0 0\n0 1 0\n3 0 1 2\n")
+    assert app.run(["-i", str(ply), "--size", "8", "8", "-o", str(out),
+                    "-rtcore", "device=cpu"]) == 0
+    assert built[1]["cscene"].tris.num_prims == 1
     pc = built[0]["cscene"].compressed_kernel
     assert pc.num_tiles == 6 * (1 << (3 - 2)) ** 2 and pc.comp_level == 2
     with pytest.raises(SystemExit):
