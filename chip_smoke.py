@@ -84,6 +84,21 @@ the public entry points:
     traced, launches, the card's busy share; each 64x64 1-spp frame
     against this package's CPU render with the same uniforms, and every
     B1 and B2 launch of that frame against its plain version;
+  * differentiable rendering (phase 27): `DiffSubdivRenderer` over
+    bomberman.obj at subdivision level 4 (372,224 triangles) on the demo
+    camera's 1280x768 frame (its selection through B1, checked against the
+    plain version on a strided slice), render / backward / step ms, peak
+    memory, 5 steps of `make_train_step`, finite differences of the
+    displacement amplitude and of kd, the cube of tests/test_diff_render.py
+    against grad_subdiv_cube.npz; `freeze_hits` on main's 2^21 rays (B1)
+    and `material_grads` for five materials against the CPU's; `path_grads`
+    on the Cornell box at 256x256, 4 spp (B2), its image equal to
+    `render_pt`'s, against the CPU at 16x16 and by a finite difference;
+  * dynamic scenes and builders (phase 28): `dynamic_scene` at 512x512 (a
+    re-commit every frame) and `viewer_anim` on a 99,012-triangle OBJ
+    (BuildQuality.LOW), the morton tree of main's mesh built on the card
+    and walked by B2 against its plain version and the SAH scene, and
+    `buildbench`;
   * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
     all ten kernel entries against their plain versions, and 100,000
     rays from inside closed surfaces through B2, B6, B1, B4 and B5, none
@@ -111,6 +126,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -183,6 +199,23 @@ from embree_tpu_torch.traverse.stream import (sort_rays_stream,  # noqa: E402
 from embree_tpu_torch.verify.fixtures import (  # noqa: E402
     crossing_clusters, hair_ball, quad_sphere, random_triangles,
     subdiv_cube, triangle_sphere)
+from embree_tpu_torch.build.bvh import BVHArraysNP, sah_cost  # noqa: E402
+from embree_tpu_torch.build.morton import build_morton  # noqa: E402
+from embree_tpu_torch.diff.materials import (  # noqa: E402
+    FLOAT_FIELDS, freeze_hits, material_grads, path_grads)
+from embree_tpu_torch.diff.render import (  # noqa: E402
+    DiffSubdivRenderer, make_train_step)
+from embree_tpu_torch.render.lights import (  # noqa: E402
+    LIGHT_POINT, make_light_table)
+from embree_tpu_torch.render.materials import (  # noqa: E402
+    MAT_MATTE, MAT_METAL, MAT_METALLIC_PAINT, MAT_OBJ, MAT_VELVET,
+    make_material_table)
+from embree_tpu_torch.render.objloader import load_obj  # noqa: E402
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    dynamic_scene as ds_tutorial)
+from embree_tpu_torch.render.tutorials import (  # noqa: E402
+    viewer_anim as va_tutorial)
+from embree_tpu_torch.verify import buildbench  # noqa: E402
 
 SCENE_RES = 707            # triangle_sphere(707) = 998,284 triangles
 SMALL_RES = 223            # triangle_sphere(223) = 99,012: under ROWTRACE_MIN_PRIMS
@@ -316,6 +349,43 @@ PT_GLASS_CAMERA = dict(from_=(0.0, 1.2, 2.6), to=(0.0, 0.6, 0.0), fov=90.0)
 PT_MAIN_SPHERE = ((0.0, 0.75, 0.0), 0.7, SCENE_RES)
 PT_CHECK_SIZE = 64
 PT_CHECK_MIN_RAYS = 1024
+# differentiable rendering (phase 27): (a) the trainer on the paper's model,
+# bomberman.obj (727 quads) at subdivision level 4 = 186,112 quads =
+# 372,224 triangles (a treelet scene), over the demo camera's 1280x768 frame
+# (983,040 rays: B1), tests/test_diff_render.py's sin-cos displacement at
+# an amplitude of 1 % of the model's box diagonal, the finite differences'
+# step a share of each parameter; (b) material gradients on main (2^21
+# rays, a point light above the sphere) for tests/test_diff_materials.py's
+# five materials; (c) path_grads on pt-cornell at 256x256, 4 spp, 8
+# bounces, held card against CPU at 16x16, 1 spp
+DIFF_LEVEL = 4
+DIFF_AMP_SHARE = 1e-2
+DIFF_FD_SHARE = 1e-3
+DIFF_KD = (0.8, 0.5, 0.3)
+DIFF_STEPS = 5
+DIFF_LR = 5e-3
+DIFF_LIGHT_P = (0.0, 5.0, 0.0)
+DIFF_LIGHT = (10.0, 10.0, 10.0)
+DIFF_MATERIALS = (
+    {"type": MAT_MATTE, "kd": (0.4, 0.6, 0.2)},
+    {"type": MAT_OBJ, "kd": (0.5, 0.3, 0.2), "ks": (0.4, 0.4, 0.4),
+     "ns": 12.0},
+    {"type": MAT_METAL, "ks": (0.9, 0.7, 0.5), "eta": 1.4, "k": 3.0,
+     "roughness": 0.2},
+    {"type": MAT_VELVET, "kd": (0.6, 0.2, 0.2), "ks": (0.3, 0.3, 0.3),
+     "ns": 8.0, "roughness": 6.0},
+    {"type": MAT_METALLIC_PAINT, "kd": (0.7, 0.2, 0.2), "eta": 1.6})
+PG_SIZE = (256, 256)
+PG_SPP = 4
+PG_REPS = 3
+PG_CHECK_SIZE = 16
+# dynamic scenes and builders (phase 28): dynamic_scene's frames at
+# 512x512 (a re-commit each), viewer_anim on (a)'s sphere written as an OBJ
+# (99,012 triangles, committed at LOW), the morton tree of main's mesh on
+# the card walked by B2, and buildbench at 100,000 prims
+DYN_SIZE = 512
+DYN_FRAMES = 5
+BUILD_PRIMS = 100_000
 
 
 T_START = time.perf_counter()
@@ -2981,6 +3051,515 @@ def pathtracer_phase():
     return errs
 
 
+def sincos_displacement(verts, normals, amp):
+    """tests/test_diff_render.py's displacement."""
+    ph = torch.sin(3.0 * verts[:, 0]) * torch.cos(2.0 * verts[:, 1])
+    return verts + amp * ph[:, None] * normals
+
+
+def grad_split_ms(loss_fn, leaves, reps=5):
+    """(forward ms, backward ms): CUDA events around `loss_fn(*leaves)` and
+    `torch.autograd.grad` of it, the median of `reps` after a warm-up."""
+    out = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = loss_fn(*leaves)
+        ev[1].record()
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+        ev[2].record()
+        torch.cuda.synchronize()
+        out.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    return tuple(float(np.median([o[k] for o in out[1:]])) for k in (0, 1))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms for the block: CUDA's
+    `index_add` then sums in a fixed order (as on the CPU), so that two
+    evaluations a step apart round alike and their difference is the
+    function's, not the atomics' order."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def central_difference(f, x, h, index=None):
+    """(f(x + h e) - f(x - h e)) / 2h for the entry `index` of tensor x
+    (all of a 0-d x)."""
+    e = torch.zeros_like(x)
+    if index is None:
+        e.fill_(h)
+    else:
+        e[index] = h
+    with torch.no_grad():
+        return (float(f(x + e)) - float(f(x - e))) / (2 * h)
+
+
+def fd_gate(label, g, fd, rtol):
+    if not (math.isfinite(g) and abs(g - fd) <= rtol * abs(fd) and g != 0):
+        raise AssertionError(f"{label}: autograd {g:.7g}, central "
+                             f"difference {fd:.7g} (rtol {rtol})")
+    log(f"  {label}: autograd {g:.7g}, central difference {fd:.7g} "
+        f"({abs(g - fd) / abs(fd):.2e} relative; gate {rtol})")
+
+
+def peak_gb(fn):
+    """(fn's result, the peak of allocated device memory while it ran
+    and the memory allocated before it, in GB)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9, before / 1e9
+
+
+def trainer_phase(dev):
+    """Phase 27a: DiffSubdivRenderer over bomberman at level 4 on the
+    demo camera's 1280x768 frame: the selection's commit and its B1
+    launch held against the plain version on a strided slice, render /
+    backward / step ms, peak memory, DIFF_STEPS train steps with the loss
+    falling, finite differences of the amplitude and one kd channel, and
+    the cube of tests/test_diff_render.py on the card (B2) against
+    grad_subdiv_cube.npz. Returns the checked launches' errors."""
+    (mesh, _mat), = load_obj(DEMO_OBJ, subdiv_mode=True)[0]
+    w, h = DEMO_SIZE
+    rays = viewer_rays(Camera(**DEMO_CAMERA), w, h, dev.device)
+    v = np.asarray(mesh.vertices, np.float32)
+    diag = float(np.linalg.norm(v.max(0) - v.min(0)))
+    amp = torch.tensor(DIFF_AMP_SHARE * diag, device=dev.device)
+    kd = torch.tensor(DIFF_KD, device=dev.device)
+    t0 = time.perf_counter()
+    r = DiffSubdivRenderer(mesh, rays, level=DIFF_LEVEL,
+                           displacement=sincos_displacement, device=dev)
+    plan_s = time.perf_counter() - t0
+    cage = torch.from_numpy(v).to(dev.device)
+    errs = {}
+    prof = global_profiler()
+    prof.samples.clear()
+    t0 = time.perf_counter()
+    with checked_launches(errs, 1 << PT_SLICE_LOG2), Launches() as lc:
+        gprim, valid = r.refresh_selection(cage, amp)
+        torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    lc.expect("refresh_selection", 1, 0)
+    n_tris = 2 * r.quads.shape[0]
+    log(f"  bomberman at level {DIFF_LEVEL}: {r.quads.shape[0]} quads = "
+        f"{n_tris} triangles (plan and stencils {plan_s:.1f} s); "
+        f"refresh_selection {refresh_s:.2f} s with the check ("
+        + ", ".join(f"{k} {prof.stats(k)['avg']:.2f} s"
+                    for k in prof.samples if k.startswith("scene."))
+        + f"): {lc.rowtrace2} B1 launch for {rays.tnear.numel()} rays, "
+        f"{errs.get('rowtrace2_rays', 0)} of them held against the plain "
+        f"version (t at 0 ulp, prim equal); {float(valid.float().mean()):.4f} "
+        f"hit; amplitude {float(amp):.5g} (1 % of the box diagonal "
+        f"{diag:.4g})")
+    if not (0.3 < float(valid.float().mean()) < 1.0):
+        raise AssertionError("trainer: the selection hits too little")
+
+    leaves = [x.clone().requires_grad_(True) for x in (cage, amp, kd)]
+    fwd_ms, bwd_ms = grad_split_ms(lambda c, a, k: r.loss(c, a, kd=k),
+                                   leaves)
+    with torch.no_grad():
+        target = r.render(cage, 1.5 * amp,
+                          kd=torch.tensor((0.6, 0.6, 0.6),
+                                          device=dev.device))
+    step = make_train_step(r, target, lr=DIFF_LR)
+    params = (cage, amp, kd)
+    step_ms = time_ms(lambda: step(params))
+    (params, loss), peak, before = peak_gb(lambda: step(params))
+    losses = [float(loss)]
+    for _ in range(DIFF_STEPS - 1):
+        params, loss = step(params)
+        losses.append(float(loss))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"trainer: the loss does not fall: {losses}")
+    log(f"  render {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms (CUDA events, "
+        f"median of 5), make_train_step's step {step_ms:.3f} ms; peak "
+        f"{peak:.2f} GB allocated during a step ({before:.2f} GB before "
+        f"it); the loss over {DIFF_STEPS} steps (lr {DIFF_LR}) from "
+        f"{losses[0]:.6g} to {losses[-1]:.6g}: "
+        + ", ".join(f"{x:.6g}" for x in losses))
+
+    # finite differences on the card: the image summed in float64, the
+    # two renders of the amplitude's difference with a fixed summation
+    # order (the displacement's normals of near-degenerate triangles turn
+    # the atomics' rounding into a 6 % error at this step)
+    a0 = amp.clone().requires_grad_(True)
+    (ga,) = torch.autograd.grad(r.render(cage, a0).double().sum(), a0)
+    with deterministic():
+        fd = central_difference(lambda a: r.render(cage, a).double().sum(),
+                                amp, DIFF_FD_SHARE * float(amp))
+    fd_gate("d sum / d amplitude", float(ga), fd, 2e-2)
+    zero = torch.zeros_like(target)
+
+    def kd_loss(k):
+        return ((r.render(cage, amp, kd=k).double() - zero) ** 2).mean()
+
+    k0 = kd.clone().requires_grad_(True)
+    (gk,) = torch.autograd.grad(kd_loss(k0), k0)
+    fd = central_difference(kd_loss, kd, 1e-3, 1)
+    fd_gate("d mean((img - 0)^2) / d kd[1]", float(gk[1]), fd, 2e-2)
+
+    # the cube of tests/test_diff_render.py on the card (B2)
+    verts = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                      for z in (-1, 1)], np.float32)
+    quads = np.array([[0, 1, 3, 2], [4, 6, 7, 5], [0, 4, 5, 1],
+                      [2, 3, 7, 6], [0, 2, 6, 4], [1, 5, 7, 3]])
+    cube = ett.SubdivMesh(verts, np.full(6, 4), quads.reshape(-1))
+    rng = np.random.default_rng(0xD1FF)
+    org = np.zeros((512, 3), np.float32)
+    org[:, 2] = -4.0
+    org[:, 0] = rng.uniform(-1.5, 1.5, 512)
+    org[:, 1] = rng.uniform(-1.5, 1.5, 512)
+    d = np.zeros((512, 3), np.float32)
+    d[:, 2] = 1.0
+    rc = DiffSubdivRenderer(cube, ett.make_rays(org, d, device=dev.device),
+                            level=3, displacement=sincos_displacement,
+                            device=dev)
+    with checked_launches(errs), Launches() as lc:
+        rc.refresh_selection(verts, torch.tensor(0.08, device=dev.device))
+    lc.expect("the cube's selection", 0, 1)
+    leaves = [torch.from_numpy(verts).to(dev.device).requires_grad_(True),
+              torch.tensor(0.08, device=dev.device, requires_grad=True),
+              torch.tensor(DIFF_KD, device=dev.device, requires_grad=True)]
+    grads = torch.autograd.grad(rc.loss(*leaves[:2], kd=leaves[2]), leaves)
+    ref = np.load(os.path.join(GOLDEN_DIR, "grad_subdiv_cube.npz"))
+    worst = 0.0
+    for g, key, atol in zip(grads, ("cage", "amp", "kd"), (1e-5, 0, 0)):
+        g = g.cpu().numpy()
+        if not np.allclose(g, ref[key], rtol=1e-4, atol=atol):
+            raise AssertionError(f"the cube's {key} gradient on the card "
+                                 "is off grad_subdiv_cube.npz")
+        worst = max(worst, float(np.max(np.abs(g - ref[key])
+                                        / np.maximum(np.abs(ref[key]),
+                                                     1e-30))))
+    log(f"  the cube of tests/test_diff_render.py on the card (1 B2 launch, "
+        "equal to its plain version): cage, amplitude and kd gradients "
+        "within rtol 1e-4 (cage atol 1e-5) of grad_subdiv_cube.npz")
+    return {"rowtrace2": errs.get("rowtrace2", 0.0),
+            "packet": errs.get("packet", 0.0)}
+
+
+def material_phase(cs, rays):
+    """Phase 27b: freeze_hits on main (one B1 closest and one B1 occluded
+    request) and material_grads for the five materials: ms on the card,
+    the gradients against the CPU's on the same frozen dict."""
+    dev = rays.org.device
+    with Launches() as lc:
+        frozen = freeze_hits(cs, rays, DIFF_LIGHT_P)
+        torch.cuda.synchronize()
+    lc.expect("freeze_hits", 2, 0)
+    freeze_ms = time_ms(lambda: freeze_hits(cs, rays, DIFF_LIGHT_P))
+    cpu = {k: v.cpu() for k, v in frozen.items()}
+    cpu64 = {k: v.double() if v.is_floating_point() else v
+             for k, v in cpu.items()}
+    gm = torch.zeros(1, dtype=torch.int32, device=dev)
+    parts, bad = [], []
+    for mat in DIFF_MATERIALS:
+        mt = make_material_table([mat], device=dev)
+        ms = time_ms(lambda: material_grads(mt, frozen, gm, DIFF_LIGHT))
+        g = {f: v.cpu() for f, v in
+             material_grads(mt, frozen, gm, DIFF_LIGHT).items()}
+        mtc = make_material_table([mat], device="cpu")
+        gc = material_grads(mtc, cpu, gm.cpu(), DIFF_LIGHT)
+        # the float64 evaluation on the CPU: how far float32's rounding
+        # (sums of up to 2^21 lanes into one table entry) puts each side
+        g64 = material_grads(mtc._replace(**{
+            f: getattr(mtc, f).double() for f in FLOAT_FIELDS}), cpu64,
+            gm.cpu(), DIFF_LIGHT)
+        scale = max(float(v.abs().max()) for v in gc.values())
+
+        def rel(a, b):
+            return max(float((a[f].double() - b[f].double()).abs().max())
+                       for f in FLOAT_FIELDS) / scale
+
+        def field_rel(a, b):
+            return max(float((a[f].double() - b[f].double()).abs().max())
+                       / max(float(b[f].abs().max()), 1e-30)
+                       for f in FLOAT_FIELDS)
+
+        errs = (rel(g, gc), rel(g, g64), rel(gc, g64), field_rel(g, gc),
+                field_rel(g, g64), field_rel(gc, g64))
+        bad.append(not (all(torch.isfinite(v).all() for v in g.values())
+                        and scale > 0 and errs[3] <= 1e-5))
+        parts.append(f"type {mat['type']} {ms:.3f} ms (" + " / ".join(
+            f"{e:.1e}" for e in errs) + ")")
+    log(f"  {int(frozen['valid'].sum())} of {rays.tnear.numel()} rays hit, "
+        f"{int(frozen['lit'].sum())} lit; freeze_hits {freeze_ms:.3f} ms "
+        f"(1 B1 closest + 1 B1 occluded request); material_grads (CUDA "
+        "events, median of 5; in brackets the largest difference of the "
+        "card's gradients from the CPU's on the same frozen dict, of the "
+        "card's and of the CPU's from the CPU's float64 evaluation, "
+        "relative to the largest entry of the material's gradients; then "
+        "the same three relative to each field's largest entry, gate 1e-5 "
+        "on the first of these): " + ", ".join(parts))
+    if any(bad):
+        raise AssertionError("material_grads: the card is off the CPU")
+
+
+def _indirect_scene(dev):
+    """tests/test_diff_materials.py's `_indirect_scene` on `dev`."""
+    scene = ett.Scene(dev)
+    mats, geom_mat = [], []
+    for p0, du, dv, kd in (((-3, 0, -3), (6, 0, 0), (0, 0, 6),
+                            (0.7, 0.7, 0.7)),
+                           ((2, 0, -3), (0, 3, 0), (0, 0, 6),
+                            (0.2, 0.8, 0.3)),
+                           ((-0.4, 1.0, -0.4), (0.8, 0, 0), (0, 0, 0.8),
+                            (0.05, 0.05, 0.05))):
+        p0 = np.asarray(p0, np.float32)
+        v = np.stack([p0, p0 + du, p0 + np.asarray(du) + np.asarray(dv),
+                      p0 + dv]).astype(np.float32)
+        gid = scene.attach(ett.QuadMesh(v, np.asarray([[0, 1, 2, 3]])))
+        geom_mat += [0] * (gid + 1 - len(geom_mat))
+        geom_mat[gid] = len(mats)
+        mats.append({"type": MAT_MATTE, "kd": kd})
+    lt = make_light_table([{"type": LIGHT_POINT, "pos": (0.0, 2.0, 0.0),
+                            "radiance": (30.0, 30.0, 30.0)}],
+                          device=dev.device)
+    return (scene.commit(), make_material_table(mats, device=dev.device),
+            lt, torch.tensor(geom_mat, dtype=torch.int32, device=dev.device))
+
+
+def path_grad_phase(dev):
+    """Phase 27c: path_grads on pt-cornell at PG_SIZE, PG_SPP spp, 8
+    bounces, every FLOAT_FIELD: its image equal to render_pt's bit for
+    bit, forward / backward ms, peak memory, B2 launches; the card's
+    gradients against the CPU's at 16x16, 1 spp with the same uniforms;
+    a finite difference on the card through tests/test_diff_materials.py's
+    indirect scene."""
+    cpu = ett.Device("ignore_config_files=1", device="cpu")
+    states = [pt_tutorial.build_cornell_scene(d) for d in (dev, cpu)]
+    cam = pt_tutorial.make_app().camera
+    w, h = PG_SIZE
+    st = states[0]
+    view = cam.ispc_camera(w, h, device=dev.device)
+    args = (st["cscene"], st["materials"], st["lights"], st["geom_mat"],
+            *view)
+    kw = dict(width=w, height=h, spp=PG_SPP,
+              max_path=pt_tutorial.MAX_PATH_LENGTH, seed=PT_SEED)
+    with Launches() as lc:
+        (img, g), peak, before = peak_gb(lambda: path_grads(*args, **kw))
+    ref = pt_tutorial.render_pt(*args, PT_SEED, width=w, height=h,
+                                spp=PG_SPP)
+    if not torch.equal(img, ref):
+        raise AssertionError("path_grads: its image is not render_pt's")
+    want = 2 * PG_SPP * pt_tutorial.MAX_PATH_LENGTH
+    lc.expect("path_grads", 0, want)
+    if not all(torch.isfinite(x).all() for x in g.values()):
+        raise AssertionError("path_grads: a gradient is not finite")
+    mt = st["materials"]
+
+    def forward(*fl):
+        return pt_tutorial.render_pt(
+            st["cscene"], mt._replace(**dict(zip(FLOAT_FIELDS, fl))),
+            st["lights"], st["geom_mat"], *view, PT_SEED, width=w,
+            height=h, spp=PG_SPP).sum()
+
+    leaves = [getattr(mt, f).clone().requires_grad_(True)
+              for f in FLOAT_FIELDS]
+    fwd_ms, bwd_ms = grad_split_ms(forward, leaves, PG_REPS)
+    saved = peak - before
+    log(f"  pt-cornell {w}x{h}, {PG_SPP} spp, {pt_tutorial.MAX_PATH_LENGTH} "
+        f"bounces, all {len(FLOAT_FIELDS)} float fields: the image equal to "
+        f"render_pt's with the same sampler bit for bit; forward "
+        f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (CUDA events, median of "
+        f"{PG_REPS}); peak {peak:.2f} GB allocated ({before:.2f} GB "
+        f"before it: {saved:.2f} GB for the saved activations); "
+        f"{lc.packet} B2 launches (expected {want}); at 1024x1024 the saved "
+        f"activations would take ~16 x {saved:.2f} = {16 * saved:.1f} GB "
+        f"({'more' if 16 * saved + before > 80 else 'less'} than the "
+        "card's 80 GB with what it already holds)")
+
+    n = PG_CHECK_SIZE * PG_CHECK_SIZE
+    res = []
+    for s in states:
+        v = cam.ispc_camera(PG_CHECK_SIZE, PG_CHECK_SIZE,
+                            device=s["cscene"].device)
+        res.append(path_grads(
+            s["cscene"], s["materials"], s["lights"], s["geom_mat"], *v,
+            width=PG_CHECK_SIZE, height=PG_CHECK_SIZE, spp=1,
+            max_path=pt_tutorial.MAX_PATH_LENGTH,
+            sampler=KeyedSampler(PT_SEED, n, s["cscene"].device)))
+    worst = 0.0
+    for f in FLOAT_FIELDS:
+        a, b = res[0][1][f].cpu(), res[1][1][f]
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if err > 1e-4 * scale or (scale == 0.0 and err != 0.0):
+            raise AssertionError(f"path_grads {f}: card {err:g} off the "
+                                 f"CPU (largest entry {scale:g})")
+        worst = max(worst, err / scale if scale else 0.0)
+    if float(res[1][1]["kd"].abs().max()) == 0.0:
+        raise AssertionError("path_grads: no kd gradient")
+    log(f"  card against CPU at {PG_CHECK_SIZE}x{PG_CHECK_SIZE}, 1 spp, the "
+        f"same uniforms: every field's gradient within {worst:.2e} of its "
+        "largest entry (gate 1e-4)")
+
+    cs, mti, lt, gmi = _indirect_scene(dev)
+    cam_p = torch.tensor([0.0, 1.5, 0.9], device=dev.device)
+    vz = -cam_p / torch.linalg.norm(cam_p)
+    vx = torch.tensor([1e-3, 0.0, 0.0], device=dev.device)
+    vy = torch.linalg.cross(vz, vx)
+    vy = 1e-3 * vy / torch.linalg.norm(vy)
+    ikw = dict(width=1, height=1, spp=16, max_path=3, n_lights=1)
+    img, gi = path_grads(cs, mti, lt, gmi, vx, vy, vz, cam_p, seed=3,
+                         fields=("kd",), **ikw)
+    if not float(img.sum()) > 1e-4:
+        raise AssertionError("the indirect scene's pixel is not lit")
+
+    def pixel(kd):
+        return pt_tutorial.render_pt(cs, mti._replace(kd=kd), lt, gmi, vx,
+                                     vy, vz, cam_p, 3, **ikw).sum()
+
+    fd = central_difference(pixel, mti.kd, 1e-2, (1, 1))
+    an = float(gi["kd"][1, 1])
+    if not abs(fd - an) < 5e-2 * max(abs(fd), 1e-3):
+        raise AssertionError(f"the wall's kd: path_grads {an:g}, central "
+                             f"difference {fd:g}")
+    log(f"  the indirect scene's bounce-2 pixel on the card: d/d kd_wall "
+        f"path_grads {an:.6g}, central difference {fd:.6g} (gate 5e-2)")
+
+
+def write_obj(path, verts, idx):
+    with open(path, "w") as f:
+        np.savetxt(f, verts, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, idx + 1, fmt="f %d %d %d")
+
+
+def dynamic_phase(dev, verts, idx, scene, rays):
+    """Phase 28: dynamic_scene (a re-commit every frame) and viewer_anim
+    (LOW) frames/s; the morton tree of main's mesh built on the card,
+    packed and walked by B2 against its plain version and the SAH
+    scene; buildbench. Returns B2's largest error."""
+    errs = {}
+    cs = scene.committed
+    st = ds_tutorial.build_scene(device=dev)
+    cam = ds_tutorial.make_app().camera
+    size = (DYN_SIZE, DYN_SIZE)
+    commits = []
+    commit = st["scene"].commit
+
+    def timed_commit():
+        t0 = time.perf_counter()
+        out = commit()
+        torch.cuda.synchronize()
+        commits.append(time.perf_counter() - t0)
+        return out
+
+    st["scene"].commit = timed_commit
+    frames, dts = [], []
+    with Launches() as lc:
+        for k in range(DYN_FRAMES + 1):
+            ctx = (checked_launches(errs, 1 << PT_SLICE_LOG2) if k < 2
+                   else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with ctx:
+                img, _ = ds_tutorial.render_frame(st, cam, size)
+                torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+            frames.append(img.cpu().numpy())
+    lc.expect("dynamic_scene", 0, DYN_FRAMES + 1)
+    moved = sum(float(np.abs(b - a).max()) > 0.01
+                for a, b in zip(frames, frames[1:]))
+    if not (all(np.isfinite(f).all() and f.shape == (*size, 3)
+                for f in frames) and frames[0].max() > 0.2
+            and moved == DYN_FRAMES):
+        raise AssertionError(f"dynamic_scene: {moved} of {DYN_FRAMES} "
+                             "frames moved, or a frame is empty")
+    ms = 1e3 * float(np.median(dts[2:]))
+    commit_ms = 1e3 * float(np.median(commits[1:]))
+    log(f"  dynamic_scene {DYN_SIZE}x{DYN_SIZE}: "
+        f"{st['cscene'].tris.num_prims} triangles, {1e3 / ms:.1f} frames/s "
+        f"({ms:.2f} ms a frame, the median of frames 2-{DYN_FRAMES}, host "
+        f"clock), the re-commit {commit_ms:.2f} ms of it ("
+        f"{commit_ms / ms:.0%}); {moved} of {DYN_FRAMES} consecutive frame "
+        f"pairs differ; 1 B2 launch a frame, those of frames 0-1 equal to "
+        "the plain version")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "sphere.obj")
+        write_obj(obj, *triangle_sphere((0.0, 0.0, 0.0), 2.0, SMALL_RES))
+        out = io.StringIO()
+        with Launches() as lc, contextlib.redirect_stdout(out):
+            rc = va_tutorial.make_app().run(
+                ["-i", obj, "--size", str(DYN_SIZE), str(DYN_SIZE),
+                 "--benchmark", "1", "3", "-rtcore", "ignore_config_files=1"])
+            torch.cuda.synchronize()
+    keys = dict(line.split() for line in out.getvalue().splitlines()
+                if line.startswith("BENCHMARK_RENDER_"))
+    if rc != 0 or "BENCHMARK_RENDER_AVG" not in keys:
+        raise AssertionError(f"viewer_anim returned {rc}")
+    lc.expect("viewer_anim: 5 frames", 0, 5)
+    log(f"  viewer_anim on (a)'s sphere as an OBJ (99,012 triangles, "
+        f"re-committed at BuildQuality.LOW every frame, 2 keyframes) "
+        f"{DYN_SIZE}x{DYN_SIZE} through make_app().run --benchmark 1 3: "
+        f"{float(keys['BENCHMARK_RENDER_AVG']):.2f} frames/s (host clock; "
+        f"{lc.packet} B2 launches in 5 frames)")
+
+    v0, v1, v2 = verts[idx[:, 0]], verts[idx[:, 1]], verts[idx[:, 2]]
+    lo, hi = prim_bounds_np(v0, v1, v2)
+    tlo = torch.from_numpy(lo).to(dev.device)
+    thi = torch.from_numpy(hi).to(dev.device)
+    morton_ms = time_ms(lambda: build_morton(tlo, thi))
+    tree = build_morton(tlo, thi)
+    t0 = time.perf_counter()
+    host = BVHArraysNP(*(a.cpu().numpy() for a in tree))
+    ps = pk.compact_scene(pk.pack_scene(host, (v0, v1, v2), "cpu"),
+                          dev.device)
+    pack_s = time.perf_counter() - t0
+    flat = flat_rays(rays)
+    with Launches() as lc:
+        t_m, p_m = pk.intersect_packet_kernel_raw(ps, flat)
+        t_s, p_s = pk.intersect_packet_kernel_raw(cs.packet, flat)
+        torch.cuda.synchronize()
+    lc.expect("morton and SAH trees through B2", 0, 2)
+    n = flat.tnear.numel()
+    sel = torch.arange(0, n, -(-n // (1 << PT_SLICE_LOG2)), device=dev.device)
+    sub = Rays(flat.org[sel], flat.dir[sel], flat.tnear[sel], flat.tfar[sel])
+    t_p, p_p = pk.packet_plain(ps, sub)
+    ulps = ulp_distance(t_m[sel], t_p.reshape(-1))
+    if ulps or not torch.equal(p_m[sel], pk._to_orig(ps, p_p).reshape(-1)):
+        raise AssertionError(f"morton tree: B2 differs from its plain "
+                             f"version ({ulps} ulp)")
+    vm, vs = p_m >= 0, p_s >= 0
+    rel = float(((t_m[vs] - t_s[vs]).abs() / t_s[vs].abs()).max())
+    if not (torch.equal(vm, vs) and rel <= 1e-5):
+        raise AssertionError(f"morton tree: {int((vm != vs).sum())} rays "
+                             f"hit otherwise than on the SAH tree, t "
+                             f"{rel:g} off")
+    with np.errstate(over="ignore", invalid="ignore"):
+        costs = sah_cost(host), sah_cost(scene._bvh_host)
+    b2_morton = time_ms(lambda: pk.intersect_packet_kernel_raw(ps, flat))
+    b2_sah = time_ms(lambda: pk.intersect_packet_kernel_raw(cs.packet, flat))
+    log(f"  morton tree of main's {lo.shape[0]} prims built on the card in "
+        f"{morton_ms:.3f} ms (CUDA events, median of 5): {ps.num_nodes} "
+        f"nodes in {ps.depth} levels, SAH cost {costs[0]:.4g} (the SAH "
+        f"tree's {costs[1]:.4g}); packed and compacted on "
+        f"the host in {pack_s:.2f} s; B2 over it on main's 2^{LOG2_RAYS} "
+        f"rays {b2_morton:.3f} ms, over the SAH tree {b2_sah:.3f} ms (CUDA "
+        f"events, median of 5); {int(vm.sum())} hits, valid equal to the "
+        f"SAH tree's, t within {rel:.2e} relative; the first launch equal "
+        f"to the plain version on {sub.tnear.numel()} strided rays (t at 0 "
+        "ulp, prim equal)")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench = buildbench.run(BUILD_PRIMS)
+    print(out.getvalue(), end="")
+    if not all(math.isfinite(v) and v > 0 for v in bench.values()):
+        raise AssertionError(f"buildbench: {bench}")
+    log(f"  buildbench.run({BUILD_PRIMS}) {time.perf_counter() - t0:.1f} s "
+        "(the BENCHMARK_BUILD_* lines above; Mprims/s, host clock, the "
+        "device builds synchronized)")
+    return errs.get("packet", 0.0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4048,6 +4627,27 @@ def main() -> int:
     log("[26] pathtracer: pt-cornell, pt-glass and pt-glass-main")
     pt_err = pathtracer_phase()
 
+    # -- 27. differentiable rendering: trainer, materials, path_grads --------
+    t27 = time.perf_counter()
+    log(f"[27a] trainer: DiffSubdivRenderer over bomberman at level "
+        f"{DIFF_LEVEL}, the demo camera's {DEMO_SIZE[0]}x{DEMO_SIZE[1]} "
+        "frame (B1); the cube on the card (B2)")
+    diff_err = trainer_phase(dev)
+    log(f"[27b] material gradients on main: freeze_hits on 2^{LOG2_RAYS} "
+        "rays (B1), material_grads for five materials")
+    material_phase(cs, rays)
+    log(f"[27c] path_grads on pt-cornell {PG_SIZE[0]}x{PG_SIZE[1]}, "
+        f"{PG_SPP} spp (B2)")
+    path_grad_phase(dev)
+    log(f"  phase 27: {time.perf_counter() - t27:.1f} s")
+
+    # -- 28. dynamic scenes and builders ---------------------------------
+    t28 = time.perf_counter()
+    log("[28] dynamic_scene, viewer_anim, the morton tree of main, "
+        "buildbench")
+    dyn_err = dynamic_phase(dev, verts, idx, scene, rays)
+    log(f"  phase 28: {time.perf_counter() - t28:.1f} s")
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
     # rays (the counting plain version). packet: ms and bound_ms belong to
@@ -4070,7 +4670,10 @@ def main() -> int:
     # packet, rowtrace2, cbvh and cbvh_occluded include phase 25's instanced
     # requests (whole folds held against the plain versions); those of
     # packet and rowtrace2 phase 26's pathtracer frames (every launch of
-    # the checked 64x64 frames held against its plain version)
+    # the checked 64x64 frames held against its plain version) and phase
+    # 27's selections (the trainer's B1 launch on a strided slice, the
+    # cube's B2 launch); packet's phase 28's dynamic_scene frames 0-1 and
+    # the morton tree's launch (strided slices)
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
@@ -4078,7 +4681,7 @@ def main() -> int:
         "launches": Launches.totals["rowtrace2"],
         "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"],
                            wt_err["rowtrace2"], inst["rowtrace2"],
-                           pt_err["rowtrace2"]),
+                           pt_err["rowtrace2"], diff_err["rowtrace2"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": nb1,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -4089,7 +4692,7 @@ def main() -> int:
         "launches": Launches.totals["packet"],
         "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
                            lane_err["packet"], tut_pk_err, inst["packet"],
-                           pt_err["packet"]),
+                           pt_err["packet"], diff_err["packet"], dyn_err),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
         "plain_rays": n,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],

@@ -17,7 +17,11 @@ OBB clusters through the hair kernel, motion-blur Bezier curves;
 instances of committed scenes (nested too) and user geometry, each
 instance through its child's own kernels; the rtcore API facade
 (`rtcore.py`, `rtcBuildBVH` through `build/user_builder.py`); the
-differentiable hit (`diff.hit`); rtcInterpolate (`Scene.interpolate`,
+differentiable hit (`diff.hit`), the differentiable subdivision renderer
+and its train step (`diff.render`) and the material gradients, one bounce
+at frozen hits or through the pathtracer (`diff.materials`); the device
+morton build (`build.morton`) and tree rotations (`build.rotate`);
+rtcInterpolate (`Scene.interpolate`,
 `interpolate_normal`: positions, normals, vertex attributes and the
 analytic limit-surface derivatives of subdiv/patches.py); the OBJ/MTL,
 XML, PLY and Corona scene loaders, textures, the materials (evaluation
@@ -26,8 +30,9 @@ the `convert` tool; the `triangle_geometry`,
 `displacement_geometry`, `motion_blur_geometry`, `hair_geometry`,
 `curve_geometry`, `viewer`, `interpolation`, `subdivision_geometry`,
 `instanced_geometry`, `user_geometry`, `intersection_filter`,
-`lazy_geometry`, `bvh_builder`, `bvh_access` and `viewer_stream`
-tutorials (`render.tutorials`).
+`lazy_geometry`, `bvh_builder`, `bvh_access`, `viewer_stream`,
+`dynamic_scene` and `viewer_anim` tutorials (`render.tutorials`); the
+`buildbench` microbenchmark (`verify.buildbench`).
 
 Quick start::
 

@@ -10,8 +10,9 @@ takes each inner slot's box as the union of its child node's valid slot
 boxes. Min and max are exact, so the result is bit-equal to the JAX
 package's whatever the order of reduction.
 
-Only the motion-blur build (scene/scene.py::_build_mb) refits today;
-BuildQuality.REFIT on a committed scene is not ported yet.
+The motion-blur build (scene/scene.py::_build_mb) refits at every knot;
+a scene committed at BuildQuality.REFIT is built anew, as in the JAX
+package.
 """
 from __future__ import annotations
 

@@ -54,10 +54,18 @@ def _solve_hit(v0, v1, v2, rays: Rays):
     return t, u, v, ng
 
 
+def _gather(table, p):
+    """table[p] through `index_select`, whose backward is one `index_add`
+    (advanced indexing's sorts its indices first)."""
+    return table.index_select(0, p.reshape(-1)).reshape(
+        p.shape + table.shape[1:])
+
+
 def reeval_hit(tris: TrianglePrims, rays: Rays, gprim, valid) -> Hits:
     """Recompute (t, u, v, Ng) differentiably for the selected prim."""
     p = gprim.clamp_min(0).long()
-    t, u, v, ng = _solve_hit(tris.v0[p], tris.v1[p], tris.v2[p], rays)
+    t, u, v, ng = _solve_hit(_gather(tris.v0, p), _gather(tris.v1, p),
+                             _gather(tris.v2, p), rays)
     flip = tris.uv_flip[p] == 1
     u = torch.where(flip, 1.0 - u, u)
     v = torch.where(flip, 1.0 - v, v)

@@ -94,6 +94,39 @@ def make_material_table(mats: list[dict], *, device) -> MaterialTable:
                             t_out, eta_out)))
 
 
+class _TableRows(torch.autograd.Function):
+    """table[idx] for a 1-D idx: an `index_select` forward; the backward
+    sums every lane's cotangent into its row in float64 with one
+    `index_add_`. A material's row is read by every lane that hit it, up
+    to millions: advanced indexing's backward sorts the lanes and walks a
+    row's lanes one after another in float32 (seconds on the card for
+    2^21 lanes, and ~3e-5 of the largest entry off the exact sum); the
+    float64 atomics land within float32's rounding of the exact sum
+    (PERF.md, phase 27b)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = g.new_zeros(ctx.table_shape, dtype=torch.float64)
+        acc.index_add_(0, idx, g.double())
+        return acc.to(g.dtype), None
+
+
+def table_rows(table, mid):
+    """table[mid] for a long tensor `mid` of any shape (`_TableRows` when
+    the table carries a gradient)."""
+    flat = mid.reshape(-1)
+    out = (_TableRows.apply(table, flat) if table.requires_grad
+           else table.index_select(0, flat))
+    return out.reshape(mid.shape + table.shape[1:])
+
+
 def _ipow(x, n: int):
     """x ** n for a python int n >= 1 by binary exponentiation, the
     products in the order of the JAX package's `integer_pow`."""
@@ -172,16 +205,16 @@ def eval_brdf(mt: MaterialTable, mid, wo, ns_normal, wi,
     """f(wo, wi) * cos(wi) for NEE: the matte, OBJ phong, metal, velvet,
     metallic-paint and hair lobes; delta BSDFs give 0."""
     mid = mid.long()
+    t, kd, ks, ns, eta, kc, rough = (
+        table_rows(a, mid) for a in (mt.type, mt.kd, mt.ks, mt.ns, mt.eta,
+                                     mt.k, mt.rough))
     cos_i = dot(wi, ns_normal).clamp_min(0.0)
-    kd = mt.kd[mid]
     diffuse = kd / math.pi * cos_i[..., None]
     # phong specular
     r = reflect(-wo, ns_normal)
     spec_cos = dot(wi, r).clamp_min(0.0)
-    nsx = mt.ns[mid]
-    phong = mt.ks[mid] * ((nsx + 2) / (2 * math.pi)
-                          * spec_cos ** nsx * cos_i)[..., None]
-    t = mt.type[mid]
+    phong = ks * ((ns + 2) / (2 * math.pi)
+                  * spec_cos ** ns * cos_i)[..., None]
     f = torch.where((t == MAT_MATTE)[..., None], diffuse, 0.0)
     f = torch.where((t == MAT_OBJ)[..., None], diffuse + phong, f)
 
@@ -192,13 +225,13 @@ def eval_brdf(mt: MaterialTable, mid, wo, ns_normal, wi,
     wh = wh / length(wh)[..., None].clamp_min(1e-12)
     cos_h = dot(wh, ns_normal).clamp_min(0.0)
     cos_ih = dot(wi, wh).clamp_min(1e-6)
-    ex = 1.0 / mt.rough[mid].clamp_min(1e-4)
+    ex = 1.0 / rough.clamp_min(1e-4)
     D = (ex + 2.0) / (2.0 * math.pi) * cos_h ** ex
-    F = fresnel_conductor(cos_ih, mt.eta[mid], mt.k[mid])
+    F = fresnel_conductor(cos_ih, eta, kc)
     G = torch.minimum(2.0 * cos_h * cos_o / cos_ih,
                       2.0 * cos_h * cos_i / cos_ih).clamp_max(1.0)
-    metal = mt.ks[mid] * (F * D * G / (4.0 * cos_o).clamp_min(1e-6)
-                          * cos_i)[..., None]
+    metal = ks * (F * D * G / (4.0 * cos_o).clamp_min(1e-6)
+                  * cos_i)[..., None]
     ok = (cos_i > 0) & (cos_o > 0)
     f = torch.where((t == MAT_METAL)[..., None],
                     torch.where(ok[..., None], metal, 0.0), f)
@@ -207,16 +240,15 @@ def eval_brdf(mt: MaterialTable, mid, wo, ns_normal, wi,
     #        + Velvety(horizonScatteringColor=kd, falloff=ns)
     # (VelvetMaterial__eval, pathtracer_device.cpp:654-659)
     sin_o = torch.sqrt((1.0 - cos_o * cos_o).clamp_min(0.0))
-    velvety = mt.kd[mid] * (sin_o ** mt.ns[mid] * cos_i / math.pi)[..., None]
-    back = dot(wo, wi).clamp(0.0, 1.0) ** mt.rough[mid]
-    minneart = mt.ks[mid] * (back * cos_i / math.pi)[..., None]
+    velvety = kd * (sin_o ** ns * cos_i / math.pi)[..., None]
+    back = dot(wo, wi).clamp(0.0, 1.0) ** rough
+    minneart = ks * (back * cos_i / math.pi)[..., None]
     f = torch.where((t == MAT_VELVET)[..., None], velvety + minneart, f)
 
     # METALLIC_PAINT: dielectric-layered lambertian base (coat is delta)
-    fo = fresnel_dielectric_schlick(cos_o, mt.eta[mid])
-    fi = fresnel_dielectric_schlick(cos_i, mt.eta[mid])
-    paint = mt.kd[mid] * (((1.0 - fo) * (1.0 - fi)) / math.pi
-                          * cos_i)[..., None]
+    fo = fresnel_dielectric_schlick(cos_o, eta)
+    fi = fresnel_dielectric_schlick(cos_i, eta)
+    paint = kd * (((1.0 - fo) * (1.0 - fi)) / math.pi * cos_i)[..., None]
     f = torch.where((t == MAT_METALLIC_PAINT)[..., None], paint, f)
 
     # HAIR: AnisotropicBlinn eval (:415-430) — Kr lobe when wi is on
@@ -225,8 +257,8 @@ def eval_brdf(mt: MaterialTable, mid, wo, ns_normal, wi,
     if tan_x is None or tan_y is None:
         tan_x, tan_y = _ortho_basis(ns_normal)
     dz = ns_normal if ng_geo is None else ng_geo
-    nx = mt.ns[mid]
-    ny = mt.rough[mid]
+    nx = ns
+    ny = rough
     norm2 = torch.sqrt((nx + 2) * (ny + 2)) / (2.0 * math.pi)
     cos_iz = dot(wi, dz)
     wh_r = wo + wi
@@ -234,7 +266,7 @@ def eval_brdf(mt: MaterialTable, mid, wo, ns_normal, wi,
     whv = torch.where((cos_iz > 0)[..., None], wh_r, wh_t)
     whv = whv / length(whv)[..., None].clamp_min(1e-12)
     d_h = _hair_d(whv, tan_x, tan_y, dz, nx, ny, norm2)
-    hair = torch.where((cos_iz > 0)[..., None], mt.ks[mid], mt.kd[mid]) \
+    hair = torch.where((cos_iz > 0)[..., None], ks, kd) \
         * (d_h * cos_iz.abs())[..., None]
     f = torch.where((t == MAT_HAIR)[..., None], hair, f)
     # mirror / dielectric(s) / reflective-metal are delta BSDFs -> no NEE
@@ -274,9 +306,10 @@ def sample_bsdf_medium(mt: MaterialTable, mid, wo, ns_normal, u,
     mid = mid.long()
     u1, u2, u3 = u[..., 0], u[..., 1], u[..., 2]
 
-    t = mt.type[mid]
-    kd = mt.kd[mid]
-    ks = mt.ks[mid]
+    t, kd, ks, ns, eta, kc, rough, eta_ot, ti_in, ti_ot = (
+        table_rows(a, mid) for a in (mt.type, mt.kd, mt.ks, mt.ns, mt.eta,
+                                     mt.k, mt.rough, mt.eta_out,
+                                     mt.trans_in, mt.trans_out))
 
     # diffuse lobe
     wi_d, _pdf_d = cosine_sample(ns_normal, u1, u2)
@@ -290,7 +323,6 @@ def sample_bsdf_medium(mt: MaterialTable, mid, wo, ns_normal, u,
     # refraction continues straight through, the reference's
     # ThinDielectric transmission)
     cos_o = dot(wo, ns_normal).clamp(-1.0, 1.0)
-    eta = mt.eta[mid]
     r0 = _ipow((1 - eta) / (1 + eta), 2)
     fres = r0 + (1 - r0) * _ipow(1 - cos_o.abs(), 5)
     refl = u3 < fres
@@ -313,7 +345,7 @@ def sample_bsdf_medium(mt: MaterialTable, mid, wo, ns_normal, u,
     # METAL: sample the power-cosine half-vector distribution around the
     # normal, reflect wo about it (MetalMaterial__sample :619-626);
     # weight = reflectance * F (the D/pdf terms cancel)
-    ex = 1.0 / mt.rough[mid].clamp_min(1e-4)
+    ex = 1.0 / rough.clamp_min(1e-4)
     cos_h = u1 ** (1.0 / (ex + 2.0))
     sin_h = torch.sqrt((1.0 - cos_h * cos_h).clamp_min(0.0))
     phi = 2.0 * math.pi * u2
@@ -322,26 +354,25 @@ def sample_bsdf_medium(mt: MaterialTable, mid, wo, ns_normal, u,
         + (sin_h * torch.sin(phi))[..., None] * t2 \
         + cos_h[..., None] * ns_normal
     wi_metal = reflect(-wo, wh)
-    f_cond = fresnel_conductor(dot(wo, wh), mt.eta[mid], mt.k[mid])
+    f_cond = fresnel_conductor(dot(wo, wh), eta, kc)
     # hemisphere rejection (MetalMaterial__sample :624-626)
     metal_up = (dot(wi_metal, ns_normal) > 0.0) \
         & (dot(wo, ns_normal) > 0.0)
     w_metal = torch.where(metal_up[..., None], ks * f_cond[..., None], 0.0)
 
     # REFLECTIVE_METAL: delta mirror x conductor fresnel (:640-643)
-    w_rmetal = ks * fresnel_conductor(cos_oo, mt.eta[mid],
-                                      mt.k[mid])[..., None]
+    w_rmetal = ks * fresnel_conductor(cos_oo, eta, kc)[..., None]
 
     # VELVET: cosine sample; weight = eval * pi / cos
     # (VelvetMaterial__sample :661-669 via sample_component2)
     sin_o = torch.sqrt((1.0 - cos_oo * cos_oo).clamp_min(0.0))
-    back_d = dot(wo, wi_d).clamp(0.0, 1.0) ** mt.rough[mid]
-    w_velvet = kd * (sin_o ** mt.ns[mid])[..., None] \
+    back_d = dot(wo, wi_d).clamp(0.0, 1.0) ** rough
+    w_velvet = kd * (sin_o ** ns)[..., None] \
         + ks * back_d[..., None]
 
     # METALLIC_PAINT: coat (delta mirror) with prob F(cosO), else the
     # dielectric-layered lambertian base
-    f_coat = fresnel_dielectric_schlick(cos_oo, mt.eta[mid])
+    f_coat = fresnel_dielectric_schlick(cos_oo, eta)
     coat = u3 < f_coat
     wi_p = torch.where(coat[..., None], wi_m, wi_d)
     w_p = torch.where(coat[..., None], torch.ones_like(kd),
@@ -350,10 +381,7 @@ def sample_bsdf_medium(mt: MaterialTable, mid, wo, ns_normal, u,
     # DIELECTRIC_SOLID: reflect/refract with exact fresnel + Medium
     # push/pop (DielectricMaterial__sample :683-707). The medium we are
     # IN decides the eta ratio: front=current medium, back=the other.
-    eta_in = mt.eta[mid]
-    eta_ot = mt.eta_out[mid]
-    ti_in = mt.trans_in[mid]
-    ti_ot = mt.trans_out[mid]
+    eta_in = eta
     inside = ((med_eta - eta_in).abs() < 1e-6) \
         & ((med_trans - ti_in).abs().amax(-1) < 1e-6)
     eta_r = torch.where(inside, eta_in / eta_ot.clamp_min(1e-6),
@@ -396,8 +424,8 @@ def sample_bsdf_medium(mt: MaterialTable, mid, wo, ns_normal, u,
     if tan_x is None or tan_y is None:
         tan_x, tan_y = _ortho_basis(ns_normal)
     dz = ns_normal if ng_geo is None else ng_geo
-    nx = mt.ns[mid]
-    ny = mt.rough[mid]
+    nx = ns
+    ny = rough
     norm1 = torch.sqrt((nx + 1) * (ny + 1)) / (2.0 * math.pi)
     norm2 = torch.sqrt((nx + 2) * (ny + 2)) / (2.0 * math.pi)
     phi_h = 2.0 * math.pi * u1

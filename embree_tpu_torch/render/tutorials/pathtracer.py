@@ -55,8 +55,9 @@ from ...scene.geometry import QuadMesh
 from ...scene.scene import Scene, scene_intersect, scene_occluded
 from ..camera import Camera, pixel_coords, pixel_morton_order_device
 from ..lights import LIGHT_QUAD, LightTable, make_light_table, sample_light
-from ..materials import (MAT_MATTE, MAT_MIRROR, MaterialTable, eval_brdf,
-                         make_material_table, sample_bsdf_medium)
+from ..materials import (MAT_MATTE, MAT_MIRROR, MaterialTable,
+                         eval_brdf, make_material_table, sample_bsdf_medium,
+                         table_rows)
 from ..tutorial_app import TutorialApplication
 from ..xmlloader import light_table_from_xml
 
@@ -224,7 +225,7 @@ def _one_sample(cscene, materials: MaterialTable, lights: LightTable,
             hits.geom_id)
         mid = geom_mat[gid.clamp(0, last_gm).long()].long()
         if emits:
-            L.index_add_(0, pix, Lw * materials.le[mid])
+            L.index_add_(0, pix, Lw * table_rows(materials.le, mid))
 
         p_hit = ro + t[..., None] * rd
         ng = ng_raw / length(ng_raw)[..., None].clamp_min(1e-20)

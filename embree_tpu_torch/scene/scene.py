@@ -107,11 +107,13 @@ subdiv/patches.py) and `interpolate_normal` (the smooth-normal fast
 path) answer on triangle, quad and subdivision meshes in torch ops on
 the scene's device.
 
-What needs a module which is not ported yet raises
-`RaytracerError(INVALID_OPERATION, "not ported yet: ...")`:
-BuildQuality.LOW / REFIT and occlusion over motion-blur geometry
-(meshes and curves). World bounds, as in the JAX package, count
-neither instances nor user geometry.
+Build quality, as in the JAX package, selects nothing for the triangle
+BVH apart from HIGH's spatial splits: LOW and REFIT commit what MEDIUM
+commits (the JAX package routes no commit to `build/morton.py` or
+`build/refit.py`). What needs a module which is not ported yet raises
+`RaytracerError(INVALID_OPERATION, "not ported yet: ...")`: occlusion
+over motion-blur geometry (meshes and curves). World bounds, as in the
+JAX package, count neither instances nor user geometry.
 """
 from __future__ import annotations
 
@@ -195,10 +197,10 @@ def _ident_uv3(n):
 
 
 class BuildQuality(enum.IntEnum):
-    LOW = 0      # morton/LBVH (not ported yet)
+    LOW = 0      # the binned SAH, as MEDIUM (the JAX package's commit)
     MEDIUM = 1   # binned SAH (default)
     HIGH = 2     # binned SAH with spatial splits (packet path's BVH only)
-    REFIT = 3    # not ported yet
+    REFIT = 3    # the binned SAH, as MEDIUM (the JAX package's commit)
 
 
 class HairEntry(NamedTuple):
@@ -391,8 +393,6 @@ class Scene:
     # --- commit (scene.cpp:632 commit_task) --------------------------------
     def commit(self) -> CommittedScene:
         trace("rtcCommitScene", id(self))
-        if self.quality in (BuildQuality.LOW, BuildQuality.REFIT):
-            raise _not_ported(f"BuildQuality.{self.quality.name}")
         t0 = time.perf_counter()
         self._progress(0.0)
         dev = self.device.device

@@ -1,8 +1,11 @@
 """Catmull-Clark subdivision core (topology + uniform refinement).
 
-Host (numpy) copy of embree_tpu/subdiv/core.py without its
-differentiable evaluation (`apply_stencil_jnp`, `apply_limit_stencil`,
-`vertex_normals_jnp`), which is not ported yet.
+Counterpart of embree_tpu/subdiv/core.py: the topology and the numpy
+evaluation are host copies; the differentiable evaluation
+(`apply_stencil_torch`, `apply_limit_stencil` and
+`vertex_normals_torch`, the JAX package's `apply_stencil_jnp`,
+`apply_limit_stencil` and `vertex_normals_jnp`) runs as torch ops, whose
+gradients autograd carries through `index_add` and indexing.
 
 Re-design of the reference's subdivision stack
 (kernels/subdiv/*): instead of per-patch feature-adaptive evaluation
@@ -32,6 +35,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -277,6 +281,51 @@ def apply_stencil_np(st: LevelStencil, verts: np.ndarray) -> np.ndarray:
     return np.concatenate([fp, ep, vp])
 
 
+def _like(a, verts: torch.Tensor) -> torch.Tensor:
+    """A stencil array as a tensor on `verts`' device: weights in its
+    dtype (the JAX package rounds them to float32 too), ids as they are."""
+    t = torch.as_tensor(a, device=verts.device)
+    return t.to(verts.dtype) if t.is_floating_point() else t
+
+
+def _seg_sum(rows, vals, n: int) -> torch.Tensor:
+    """segment_sum: `vals` summed into `n` rows (out of place)."""
+    return vals.new_zeros((n, vals.shape[1])).index_add(0, rows, vals)
+
+
+def apply_stencil_torch(st: LevelStencil, verts: torch.Tensor):
+    """Torch evaluation (differentiable w.r.t. verts) of one level; the
+    stencil's arrays may be numpy or tensors on verts' device
+    (`plan_to`). Gathers are `index_select`, whose backward is one
+    `index_add` (advanced indexing's sorts its indices first, an order of
+    magnitude slower on the card)."""
+    def t(a):
+        return _like(a, verts)
+
+    def take(a, idx):
+        return a.index_select(0, idx)
+
+    e_vidx, e_vw, e_fidx, e_fw = (t(st.e_vidx), t(st.e_vw), t(st.e_fidx),
+                                  t(st.e_fw))
+    fp = _seg_sum(t(st.f_seg), take(verts, t(st.f_idx)) * t(st.f_w)[:, None],
+                  st.F)
+    ep = (take(verts, e_vidx[:, 0]) * e_vw[:, 0:1]
+          + take(verts, e_vidx[:, 1]) * e_vw[:, 1:2]
+          + take(fp, e_fidx[:, 0]) * e_fw[:, 0:1]
+          + take(fp, e_fidx[:, 1]) * e_fw[:, 1:2])
+    vp = verts[:st.V] * t(st.v_self_w)[:, None]
+    vp = vp + _seg_sum(t(st.vn_seg),
+                       take(verts, t(st.vn_idx)) * t(st.vn_w)[:, None], st.V)
+    vp = vp + _seg_sum(t(st.vf_seg),
+                       take(fp, t(st.vf_idx)) * t(st.vf_w)[:, None], st.V)
+    return torch.cat([fp, ep, vp])
+
+
+_STENCIL_ARRAYS = ("f_seg", "f_idx", "f_w", "e_vidx", "e_vw", "e_fidx",
+                   "e_fw", "v_self_w", "vn_seg", "vn_idx", "vn_w", "vf_seg",
+                   "vf_idx", "vf_w")
+
+
 @dataclasses.dataclass
 class SubdivisionPlan:
     """All L refinement levels for a control cage (topology only —
@@ -352,18 +401,34 @@ def plan_subdivision(face_counts, face_indices, num_vertices, levels: int,
 
 
 def evaluate_plan(plan: SubdivisionPlan, base_vertices):
-    """Run all levels (numpy); returns the final vertex array."""
+    """Run all levels; returns the final vertex array: numpy for a numpy
+    cage, a tensor (differentiable) for a tensor."""
+    apply = (apply_stencil_torch if isinstance(base_vertices, torch.Tensor)
+             else apply_stencil_np)
     v = base_vertices
     for st in plan.levels:
-        v = apply_stencil_np(st, v)
+        v = apply(st, v)
     return v
+
+
+def plan_to(plan: SubdivisionPlan, device) -> SubdivisionPlan:
+    """The plan with its evaluation stencils as tensors on `device` (the
+    weights float32), so that `evaluate_plan` uploads nothing a call."""
+    def up(a):
+        t = torch.as_tensor(a, device=device)
+        return t.float() if t.is_floating_point() else t
+
+    return dataclasses.replace(plan, levels=[
+        dataclasses.replace(st, **{f: up(getattr(st, f))
+                                   for f in _STENCIL_ARRAYS})
+        for st in plan.levels])
 
 
 def limit_stencil(plan: SubdivisionPlan):
     """Sparse (rows, cols, w) stencil with limit_verts = scatter-add of
     w * verts[cols] into rows — the same rules as limit_project but as a
-    topology-only linear operator (the differentiable commit path, not
-    ported yet, applies it to tensors)."""
+    topology-only linear operator, which `apply_limit_stencil` applies to
+    tensors differentiably (the differentiable commit path)."""
     quads = plan.final_quads
     V = plan.num_final_vertices
     n_faces = np.zeros(V, np.int64)
@@ -437,6 +502,32 @@ def limit_stencil(plan: SubdivisionPlan):
     cw0.append(np.ones(int(corner_v.sum())))
     return (np.concatenate(cr0), np.concatenate(cc0),
             np.concatenate(cw0).astype(np.float32))
+
+
+def apply_limit_stencil(stencil, verts):
+    """Apply a limit_stencil to numpy vertices, or to a tensor
+    (differentiably; the stencil's arrays numpy or tensors)."""
+    rows, cols, w = stencil
+    if isinstance(verts, np.ndarray):
+        out = np.zeros_like(verts)
+        np.add.at(out, rows, w[:, None] * verts[cols])
+        return out
+    return torch.zeros_like(verts).index_add(
+        0, _like(rows, verts), _like(w, verts)[:, None]
+        * verts.index_select(0, _like(cols, verts)))
+
+
+def vertex_normals_torch(verts: torch.Tensor, quads):
+    """Differentiable area-weighted vertex normals (torch twin of
+    tessellate.vertex_normals; the JAX package's vertex_normals_jnp)."""
+    q = _like(quads, verts).long()
+    p0, p1, p2, p3 = (verts.index_select(0, q[:, k]) for k in range(4))
+    n = torch.linalg.cross(p2 - p0, p3 - p1)
+    out = torch.zeros_like(verts)
+    for k in range(4):
+        out = out.index_add(0, q[:, k], n)
+    ln = torch.linalg.norm(out, dim=1, keepdim=True)
+    return out / ln.clamp_min(1e-20)
 
 
 def limit_project(plan: SubdivisionPlan, verts: np.ndarray) -> np.ndarray:

@@ -306,10 +306,22 @@ def test_unported_arguments_raise(rng):
     sc.set_intersection_filter(lambda *a: False)
     assert not sc.intersect(rays).valid.any()
     sc.set_intersection_filter(None)
-    for q in (ett.BuildQuality.LOW, ett.BuildQuality.REFIT):
-        low = ett.Scene(dev, quality=q)
-        low.attach(ett.TriangleMesh(*triangle_sphere((0, 0, 0), 1.0, 8)))
-        raises_not_ported(low.commit)
+    # build qualities LOW and REFIT commit MEDIUM's tree, as the JAX
+    # package does (quality selects only HIGH's spatial splits)
+    mesh = triangle_sphere((0, 0, 0), 1.0, 8)
+    trees = {}
+    for q in ("LOW", "REFIT", "MEDIUM"):
+        sq = ett.Scene(dev, quality=ett.BuildQuality[q])
+        sq.attach(ett.TriangleMesh(*mesh))
+        trees[q] = [a.numpy() for a in sq.commit().bvh]
+        jq = et.Scene(et.Device("ignore_config_files=1"),
+                      quality=et.BuildQuality[q])
+        jq.attach(et.TriangleMesh(*mesh))
+        for a, b in zip(trees[q], jq.commit().bvh):
+            np.testing.assert_array_equal(a, np.asarray(b))
+    for q in ("LOW", "REFIT"):
+        for a, b in zip(trees[q], trees["MEDIUM"]):
+            np.testing.assert_array_equal(a, b)
 
     class Blob(ett.Geometry):
         num_prims = 1
