@@ -99,6 +99,13 @@ the public entry points:
     (BuildQuality.LOW), the morton tree of main's mesh built on the card
     and walked by B2 against its plain version and the SAH scene, and
     `buildbench`;
+  * distribution (phase 29): NCCL at world 1 in this process
+    (`sharded_intersect` field for field against `scene.intersect`, 5
+    steps of `make_sharded_train_step` against unsharded autograd, the
+    primitive-sharded ring with one shard against B1), gloo at world 4
+    with four spawned ranks on the one card (the ring over 4 morton
+    shards of main, DP and the train step against world 1, scalebench),
+    each rank's launches and checks reported back; `benchmarks.run()`;
   * rays with NaN and Inf lanes (and NaN, +-Inf and -0.5 times) through
     all ten kernel entries against their plain versions, and 100,000
     rays from inside closed surfaces through B2, B6, B1, B4 and B5, none
@@ -128,6 +135,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -216,6 +224,17 @@ from embree_tpu_torch.render.tutorials import (  # noqa: E402
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     viewer_anim as va_tutorial)
 from embree_tpu_torch.verify import buildbench  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from embree_tpu_torch.diff.hit import intersect_diff  # noqa: E402
+from embree_tpu_torch.dist.prim_shard import (  # noqa: E402
+    PrimShardedScene, build_prim_sharded, place_prim_sharded,
+    prim_sharded_intersect)
+from embree_tpu_torch.dist.sharding import (  # noqa: E402
+    all_reduce_grads, gather_hits, make_mesh, make_sharded_train_step,
+    run_world, shard_rays, sharded_intersect)
+from embree_tpu_torch.traverse.packet import (  # noqa: E402
+    intersect_chunked, occluded_chunked)
+from embree_tpu_torch.verify import benchmarks, scalebench  # noqa: E402
 
 SCENE_RES = 707            # triangle_sphere(707) = 998,284 triangles
 SMALL_RES = 223            # triangle_sphere(223) = 99,012: under ROWTRACE_MIN_PRIMS
@@ -386,6 +405,18 @@ PG_CHECK_SIZE = 16
 DYN_SIZE = 512
 DYN_FRAMES = 5
 BUILD_PRIMS = 100_000
+# distribution (phase 29): (a) NCCL at world 1 in this process, (b) gloo
+# at world DIST_WORLD in spawned ranks that all compute on cuda:0, main's
+# mesh in DIST_WORLD morton shards for the ring, 2^LOG2_RAYS rays; the
+# train step pulls the sphere, from rays leaving its center, toward
+# DIST_TARGET of its radius
+DIST_BACKEND = "nccl"
+DIST_WORLD = 4
+DIST_TARGET = 0.9
+DIST_STEPS = 5
+DIST_REPS = 5
+DIST_SLICE_LOG2 = 16       # rays of a checked launch compared with plain
+DIST_SCALE_RAYS = 262144   # scalebench's default batch
 
 
 T_START = time.perf_counter()
@@ -2729,16 +2760,24 @@ class KeyedSampler:
 
 
 @contextlib.contextmanager
-def checked_launches(errs, limit=None):
+def checked_launches(errs, limit=None, first=None):
     """Every B1 and B2 launch that a request makes while the block runs is
     held against its plain version on the same inputs: t at 0 ulp and prim
-    equal (closest), the answers equal (any hit). With `limit`, a launch
-    of more rays is compared on a strided slice of `limit` of them (the
-    kernel still runs on all). `errs` collects the largest error of each
-    kernel, the launches checked and the rays compared."""
+    equal (closest), the answers equal (any hit). B2 is caught both where
+    the scene's dispatch and where the packet walks of traverse/packet.py
+    (the ring's hops among them) look it up. With `limit`, a launch of
+    more rays is compared on a strided slice of `limit` of them (the
+    kernel still runs on all); with `first`, only the first `first`
+    launches of each kernel are compared. `errs` collects the largest
+    error of each kernel, the launches checked and the rays compared."""
     names = ("intersect_packet_kernel_raw", "occluded_packet_kernel",
              "intersect_rowtrace2")
+    b2_names = names[:2]
     kernel = {k: getattr(scene_mod, k) for k in names}
+    b2_kernel = {k: getattr(pk, k) for k in b2_names}
+
+    def skip(name):
+        return first is not None and errs.get(name + "_checked", 0) >= first
 
     def part(rays, ray_mask):
         """(the rays compared, their mask, their flat indices or None)."""
@@ -2762,13 +2801,15 @@ def checked_launches(errs, limit=None):
     def closest(name, t, prim, tp, pp):
         e = ulp_distance(t, tp)
         if e != 0 or not torch.equal(prim, pp):
-            raise AssertionError(f"{name}: a pathtracer launch differs from "
-                                 f"its plain version ({e} ulp)")
+            raise AssertionError(f"{name}: a launch differs from its plain "
+                                 f"version ({e} ulp)")
         errs[name] = max(errs.get(name, 0.0), float(e))
 
     def packet_raw(ps, rays, cull=False, ray_mask=None):
         t, prim = kernel["intersect_packet_kernel_raw"](ps, rays, cull,
                                                         ray_mask)
+        if skip("packet"):
+            return t, prim
         sub, mask, sel = part(rays, ray_mask)
         tp, pp = pk.packet_plain(ps, sub, False, cull, ray_mask=mask)
         closest("packet", picked(t, sel), picked(prim, sel), tp.reshape(-1),
@@ -2778,6 +2819,8 @@ def checked_launches(errs, limit=None):
 
     def packet_occluded(ps, rays, cull=False, ray_mask=None):
         occ = kernel["occluded_packet_kernel"](ps, rays, cull, ray_mask)
+        if skip("packet"):
+            return occ
         sub, mask, sel = part(rays, ray_mask)
         tp, _ = pk.packet_plain(ps, sub, True, cull, ray_mask=mask)
         bad = int((picked(occ, sel) != (tp.reshape(-1) == -math.inf)).sum())
@@ -2789,6 +2832,8 @@ def checked_launches(errs, limit=None):
 
     def treelet(ts, rays, occluded=False, cull=False):
         t, prim = kernel["intersect_rowtrace2"](ts, rays, occluded, cull)
+        if skip("rowtrace2"):
+            return t, prim
         sub, _, sel = part(rays, None)
         tp, pp = rt2.rowtrace2_plain(ts, sub, occluded, cull)
         closest("rowtrace2", picked(t, sel), picked(prim, sel),
@@ -2799,11 +2844,15 @@ def checked_launches(errs, limit=None):
     swap = dict(zip(names, (packet_raw, packet_occluded, treelet)))
     for k, fn in swap.items():
         setattr(scene_mod, k, fn)
+        if k in b2_kernel:
+            setattr(pk, k, fn)
     try:
         yield errs
     finally:
         for k, fn in kernel.items():
             setattr(scene_mod, k, fn)
+        for k, fn in b2_kernel.items():
+            setattr(pk, k, fn)
 
 
 def expect_requests(label, lc, counts):
@@ -3558,6 +3607,422 @@ def dynamic_phase(dev, verts, idx, scene, rays):
         "(the BENCHMARK_BUILD_* lines above; Mprims/s, host clock, the "
         "device builds synchronized)")
     return errs.get("packet", 0.0)
+
+
+def scale_loss(cs):
+    """tests/test_dist.py's loss on a committed scene: its triangles
+    scaled by `scale` about the origin, the squared distance of every
+    hit from `target` (intersect_diff: the scene's own kernel selects,
+    autograd re-evaluates)."""
+    def loss_fn(scale, rays, target):
+        tris = cs.tris._replace(v0=cs.tris.v0 * scale, v1=cs.tris.v1 * scale,
+                                v2=cs.tris.v2 * scale)
+        h = intersect_diff(cs._replace(tris=tris), rays)
+        return torch.where(h.valid, (h.t - target) ** 2,
+                           torch.zeros_like(h.t)).sum()
+    return loss_fn
+
+
+def step_off(run, loss, scale):
+    """(relative error of a train run's first loss against `loss`, of
+    its scale after the first step against `scale`)."""
+    return (abs(run["losses"][0] - loss) / abs(loss),
+            abs(run["scales"][0] - scale) / abs(scale))
+
+
+def ring_times(fn, reps):
+    """(total ms, B2 ms) of `fn`, a ring request, each the median of
+    `reps` after a warm-up (CUDA events on this rank's stream: the total
+    from before the first hop to after the last, B2 the sum of its
+    launches; the rest is the hops' staging and waiting)."""
+    raw = pk.intersect_packet_kernel_raw
+    spans = []
+
+    def timed(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = raw(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    fn()
+    torch.cuda.synchronize()
+    totals, b2s = [], []
+    pk.intersect_packet_kernel_raw = timed
+    try:
+        for _ in range(reps):
+            spans.clear()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn()
+            ev1.record()
+            torch.cuda.synchronize()
+            totals.append(ev0.elapsed_time(ev1))
+            b2s.append(sum(a.elapsed_time(b) for a, b in spans))
+    finally:
+        pk.intersect_packet_kernel_raw = raw
+    return float(np.median(totals)), float(np.median(b2s))
+
+
+def dist_rays(cfg, device):
+    """Main's rays (phase 4's, from RAY_SEED) and the train step's: the
+    same directions from the sphere's center."""
+    n = 1 << cfg["log2"]
+    rng = np.random.default_rng(RAY_SEED)
+    d = unit_dirs(rng, n)
+    org = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    return (ett.make_rays(org, d, device=device),
+            ett.make_rays(np.zeros_like(org), d, device=device))
+
+
+def dist_rank(rank, world, tmp, cfg):
+    """One rank of phase 29 (b), spawned by `run_world` under gloo: all
+    ranks compute on cfg["device"] (cuda:0). Main's committed scene comes
+    from phase 4 through torch.save, the ring's shards through an npz.
+    Returns its launches, errors against the plain versions, the train
+    step's values and times, and on rank 0 the gathered hits."""
+    dev = torch.device(cfg["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cs = torch.load(os.path.join(tmp, "main.pt"), map_location=dev,
+                    weights_only=False)
+    with np.load(os.path.join(tmp, "shards.npz")) as f:
+        ps = PrimShardedScene(**{k: f[k] for k in PrimShardedScene._fields})
+    rays, train = dist_rays(cfg, dev)
+    mesh = make_mesh()
+    ring = make_mesh(world, "sp")
+    shard = place_prim_sharded(ps, ring, "sp", device=dev)
+    block, r = shard_rays(rays, mesh)
+    rblock, _ = shard_rays(rays, ring, "sp")
+    tblock, _ = shard_rays(train, mesh)
+    target = torch.full_like(tblock.tnear, cfg["target"])
+    loss_fn = scale_loss(cs)
+    step = make_sharded_train_step(mesh, loss_fn)
+    errs, errs_b2 = {}, {}
+    torch.cuda.synchronize()
+    rt2.launches = pk.launches = 0
+    with checked_launches(errs, 1 << cfg["slice"]):
+        dp = gather_hits(sharded_intersect(cs, block, mesh), mesh)
+    with checked_launches(errs_b2, 1 << cfg["slice"], first=1):
+        hr = gather_hits(prim_sharded_intersect(shard, rblock, ring, "sp"),
+                         ring, "sp")
+    one = torch.tensor(1.0, device=dev, requires_grad=True)
+    ll = loss_fn(one, tblock, target)
+    l1, g1 = all_reduce_grads(
+        [ll.detach(), torch.autograd.grad(ll, one)[0]], mesh)
+    scale, losses, scales = torch.tensor(1.0, device=dev), [], []
+    for _ in range(cfg["steps"]):
+        loss, scale = step(scale, tblock, target, cfg["lr"])
+        losses.append(loss.item())
+        scales.append(scale.item())
+    torch.cuda.synchronize()
+    out = {"launches": {"rowtrace2": rt2.launches, "packet": pk.launches},
+           "errs": {"rowtrace2": errs.get("rowtrace2", 0.0),
+                    "rowtrace2_rays": errs.get("rowtrace2_rays", 0),
+                    "packet": errs_b2.get("packet", 0.0),
+                    "packet_checked": errs_b2.get("packet_checked", 0),
+                    "packet_rays": errs_b2.get("packet_rays", 0)},
+           "loss1": l1.item(), "grad1": g1.item(), "losses": losses,
+           "scales": scales, "shard_prims": shard.tris.num_prims,
+           "shard_nodes": shard.packet.num_nodes,
+           "shard_depth": shard.packet.depth}
+    out["ring_ms"], out["ring_b2_ms"] = ring_times(
+        lambda: prim_sharded_intersect(shard, rblock, ring, "sp"),
+        cfg["reps"])
+    out["dp_ms"] = time_ms(lambda: sharded_intersect(cs, block, mesh),
+                           cfg["reps"])
+    out["step_ms"] = time_ms(lambda: step(torch.tensor(1.0, device=dev),
+                                          tblock, target, cfg["lr"]),
+                             cfg["reps"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["scalebench"] = scalebench.run(cfg["scale_rays"], device=dev)
+    if rank == 0:
+        out["dp"] = {k: v[:r].cpu().numpy() for k, v in dp._asdict().items()}
+        out["ring"] = {k: v[:r].cpu().numpy()
+                       for k, v in hr._asdict().items()}
+    return out
+
+
+def walks_phase(dev, cs, rays, ref, errs_b2):
+    """The packet walks' public entries (traverse/packet.py) on main's
+    SAH tree, with a prim mask and a ray mask: `intersect_chunked` and
+    `occluded_chunked` each pack the tree on the host and launch B2 once,
+    held against its plain version on a strided slice. A hit lies on a
+    triangle whose mask meets the ray's; rays whose mask holds every bit
+    hit as B1 does (`ref`); the any hit equals the closest hit's valid.
+    Adds the largest B2 error to `errs_b2`."""
+    n = rays.tnear.numel()
+    pmask = torch.tensor(1 + np.arange(cs.tris.num_prims) % 2,
+                         dtype=torch.int32, device=dev)
+    rmask = torch.tensor(np.random.default_rng(RAY_SEED + 1).integers(0, 4, n),
+                         dtype=torch.int32, device=dev)
+    errs = {}
+    t0 = time.perf_counter()
+    with Launches() as lc, checked_launches(errs, 1 << DIST_SLICE_LOG2):
+        hw = intersect_chunked(cs.bvh, cs.tris, rays, prim_mask=pmask,
+                               ray_mask=rmask)
+        ow = occluded_chunked(cs.bvh, cs.tris, rays, prim_mask=pmask,
+                              ray_mask=rmask)
+        torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    lc.expect("intersect_chunked and occluded_chunked", 0, 2)
+    if errs.get("packet_checked") != 2:
+        raise AssertionError(f"packet walks: {errs.get('packet_checked')} "
+                             "of 2 B2 launches checked")
+    v = hw.valid
+    met = (pmask[hw.gprim.clamp(min=0)] & rmask) != 0
+    full = rmask == 3
+    rel = float(((hw.t - ref.t).abs() / ref.t.abs())[full & ref.valid].max())
+    if not (torch.equal(ow, v) and bool(met[v].all())
+            and not bool(v[rmask == 0].any())
+            and torch.equal(v[full], ref.valid[full]) and rel <= 1e-5):
+        raise AssertionError(
+            f"packet walks: any hit {int((ow != v).sum())} rays off the "
+            f"closest hit's valid, {int((~met[v]).sum())} hits on a masked "
+            f"triangle, {int(v[rmask == 0].sum())} hits of mask-0 rays, "
+            f"{int((v[full] != ref.valid[full]).sum())} unmasked rays off "
+            f"B1's valid, t {rel:g} off")
+    errs_b2["packet"] = max(errs_b2.get("packet", 0.0), errs["packet"])
+    log(f"  intersect_chunked and occluded_chunked on main's SAH tree, "
+        f"{n} rays with a ray mask and a prim mask: {int(v.sum())} hits, "
+        f"every one on a triangle whose mask meets the ray's; rays of every "
+        f"mask bit valid-equal to B1, t within {rel:.3g}; any hit equal to "
+        f"the closest hit's valid; both B2 launches equal to the plain "
+        f"version on {errs['packet_rays']} strided rays; {walk_s:.2f} s "
+        f"with the two host packings")
+
+
+def dist_phase(dev, verts, idx, scene, rays):
+    """Phase 29: the distribution layer. (a) DIST_BACKEND at world 1 in
+    this process: `sharded_intersect` (B1) against the phase's own
+    `scene.intersect`, 5 train steps against unsharded autograd, the
+    ring with one shard (B2 over main's SAH tree) against B1; (b) gloo at
+    world DIST_WORLD, spawned ranks on one card: the ring over DIST_WORLD
+    morton shards, DP and the train step against (a), scalebench; (c)
+    `benchmarks.run()`. Returns the largest error of B1 and B2 and the
+    launches the ranks made."""
+    cs = scene.committed
+    n = rays.tnear.numel()
+    radius = float(np.linalg.norm(verts, axis=1).max())
+    cfg = {"log2": int(math.log2(n)), "slice": DIST_SLICE_LOG2,
+           "device": str(dev), "lr": 1.0 / (16 * n), "steps": DIST_STEPS,
+           "reps": DIST_REPS, "target": DIST_TARGET * radius,
+           "scale_rays": DIST_SCALE_RAYS}
+    errs, errs_b2 = {}, {}
+    _, train = dist_rays(cfg, dev)
+    v0, v1, v2 = (np.ascontiguousarray(verts[idx[:, k]]) for k in range(3))
+    T = len(idx)
+    ids = (np.zeros(T, np.int32), np.arange(T, dtype=np.int32),
+           np.zeros(T, np.int32))
+    log(f"[29a] {DIST_BACKEND} at world 1: sharded_intersect, "
+        f"{DIST_STEPS} train steps, the ring with one shard")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            DIST_BACKEND, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            ref = scene.intersect(rays)
+            mesh = make_mesh()
+            with Launches() as lc, checked_launches(errs,
+                                                    1 << DIST_SLICE_LOG2):
+                block, r = shard_rays(rays, mesh)
+                h = gather_hits(sharded_intersect(cs, block, mesh), mesh)
+                torch.cuda.synchronize()
+            lc.expect("sharded_intersect at world 1", 1, 0)
+            bad = [f for f, a, b in zip(h._fields, h, ref)
+                   if not torch.equal(a[:r], b)]
+            if bad:
+                raise AssertionError(f"sharded_intersect: {bad} differ from "
+                                     "scene.intersect")
+            dp_ms = time_ms(lambda: sharded_intersect(cs, block, mesh),
+                            DIST_REPS)
+            log(f"  sharded_intersect on {n} rays: every Hits field equal to "
+                f"scene.intersect's (B1, checked against its plain version "
+                f"on {errs.get('rowtrace2_rays', 0)} strided rays at 0 "
+                f"ulp); {dp_ms:.3f} ms, {n / dp_ms / 1e3:.1f} Mray/s")
+
+            loss_fn = scale_loss(cs)
+            step = make_sharded_train_step(mesh, loss_fn)
+            tblock, _ = shard_rays(train, mesh)
+            target = torch.full_like(tblock.tnear, cfg["target"])
+            one = torch.tensor(1.0, device=dev, requires_grad=True)
+            lf = loss_fn(one, train, torch.full_like(train.tnear,
+                                                     cfg["target"]))
+            gf = torch.autograd.grad(lf, one)[0]
+            losses, scales, step_ms = [], [], []
+            with Launches() as lc:
+                one = torch.tensor(1.0, device=dev, requires_grad=True)
+                ll = loss_fn(one, tblock, target)
+                l1, g1 = all_reduce_grads(
+                    [ll.detach(), torch.autograd.grad(ll, one)[0]], mesh)
+                scale = torch.tensor(1.0, device=dev)
+                for _ in range(DIST_STEPS):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    loss, scale = step(scale, tblock, target, cfg["lr"])
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    losses.append(loss.item())
+                    scales.append(scale.item())
+                    step_ms.append(ev[0].elapsed_time(ev[1]))
+            lc.expect("train steps at world 1", DIST_STEPS + 1, 0)
+            rel_l = abs(l1.item() - lf.item()) / abs(lf.item())
+            rel_g = abs(g1.item() - gf.item()) / abs(gf.item())
+            # the step's own first loss and update against autograd's
+            first = 1.0 - cfg["lr"] * gf.item()
+            rel_sl, rel_su = step_off({"losses": losses, "scales": scales},
+                                      lf.item(), first)
+            if not (rel_l <= 1e-5 and rel_g <= 1e-5 and rel_sl <= 1e-5
+                    and rel_su <= 1e-5 and losses[-1] < 0.5 * losses[0]
+                    and DIST_TARGET < scales[-1] < 1.0):
+                raise AssertionError(
+                    f"train step: losses {losses}, scales {scales}, loss "
+                    f"{rel_l:g} and gradient {rel_g:g} off; the step's first "
+                    f"loss {rel_sl:g} and update {rel_su:g} off")
+            log(f"  train step (lr {cfg['lr']:.4g}): loss {losses[0]:.6g} -> "
+                f"{losses[-1]:.6g} in {DIST_STEPS} steps, scale "
+                f"{scales[-1]:.6f} (target {DIST_TARGET}); at scale 1 the "
+                f"all-reduced loss {l1.item():.8g} and gradient "
+                f"{g1.item():.8g} are {rel_l:g} and {rel_g:g} relative off "
+                f"unsharded autograd's, the step's own first loss and scale "
+                f"{rel_sl:g} and {rel_su:g} off autograd's loss and 1 - lr "
+                f"g; step {np.median(step_ms):.3f} ms (median of "
+                f"{DIST_STEPS}, CUDA events)")
+
+            t0 = time.perf_counter()
+            ps1 = build_prim_sharded(v0, v1, v2, *ids, 1)
+            build_s = time.perf_counter() - t0
+            ring = make_mesh(1, "sp")
+            t0 = time.perf_counter()
+            shard = place_prim_sharded(ps1, ring, "sp", device=dev)
+            place_s = time.perf_counter() - t0
+            rblock, _ = shard_rays(rays, ring, "sp")
+            with Launches() as lc, checked_launches(errs_b2,
+                                                    1 << DIST_SLICE_LOG2):
+                ring1 = prim_sharded_intersect(shard, rblock, ring, "sp")
+                torch.cuda.synchronize()
+            lc.expect("the ring with one shard", 0, 1)
+            vr, vb = ring1.valid, ref.valid
+            rel = float(((ring1.t - ref.t).abs() / ref.t.abs())[vb].max())
+            ties = int((ring1.gprim != ref.gprim)[vb].sum())
+            if not (torch.equal(vr, vb) and rel <= 1e-5):
+                raise AssertionError(f"ring, one shard: {int((vr != vb).sum())}"
+                                     f" valid flags differ from B1's, t "
+                                     f"{rel:g} off")
+            ring1_ms, ring1_b2 = ring_times(
+                lambda: prim_sharded_intersect(shard, rblock, ring, "sp"),
+                DIST_REPS)
+            log(f"  the ring with one shard: build_prim_sharded {build_s:.2f}"
+                f" s, place (pack, compact) {place_s:.2f} s, BVH"
+                f"{shard.packet.width} of {shard.packet.num_nodes} nodes in "
+                f"{shard.packet.depth} levels; valid equal to B1's, t within "
+                f"{rel:.3g} relative, prim different on {ties} of "
+                f"{int(vb.sum())} hits (ties); its B2 launch equal to the "
+                f"plain version on {errs_b2.get('packet_rays', 0)} strided "
+                f"rays (t at 0 ulp, prim equal); {ring1_ms:.3f} ms a request"
+                f" ({ring1_b2:.3f} ms of it B2)")
+            walks_phase(dev, cs, rays, ref, errs_b2)
+        finally:
+            dist.destroy_process_group()
+
+    log(f"[29b] gloo at world {DIST_WORLD}, every rank on {dev}: the ring "
+        f"over {DIST_WORLD} morton shards, DP, the train step, scalebench")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.save(cs, os.path.join(tmp, "main.pt"))
+        ps = build_prim_sharded(v0, v1, v2, *ids, DIST_WORLD)
+        np.savez(os.path.join(tmp, "shards.npz"), **ps._asdict())
+        prep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = run_world(dist_rank, DIST_WORLD, tmp, cfg, backend="gloo",
+                        workdir=tmp)
+        world_s = time.perf_counter() - t0
+    for k, rr in enumerate(res):
+        Launches.expect(types.SimpleNamespace(**rr["launches"]),
+                        f"rank {k}", DIST_STEPS + 2, DIST_WORLD)
+        Launches.totals["rowtrace2"] += rr["launches"]["rowtrace2"]
+        Launches.totals["packet"] += rr["launches"]["packet"]
+        errs["rowtrace2"] = max(errs.get("rowtrace2", 0.0),
+                                rr["errs"]["rowtrace2"])
+        errs_b2["packet"] = max(errs_b2.get("packet", 0.0),
+                                rr["errs"]["packet"])
+        if rr["errs"]["packet_checked"] != 1:
+            raise AssertionError(f"rank {k}: its first B2 launch was not "
+                                 "checked")
+    r0 = res[0]
+    bad = [f for f in h._fields
+           if not np.array_equal(r0["dp"][f], getattr(ref, f).cpu().numpy())]
+    if bad:
+        raise AssertionError(f"DP at world {DIST_WORLD}: {bad} differ from "
+                             "(a)")
+    g = r0["ring"]
+    ring_valid = g["geom_id"] != -1
+    v1_ = ring1.valid.cpu().numpy()
+    t_a = ring1.t.cpu().numpy()
+    if not (np.array_equal(ring_valid, v1_)
+            and g["t"].tobytes() == t_a.tobytes()):
+        raise AssertionError(f"the ring over {DIST_WORLD} shards: valid or t "
+                             "differ from the ring with one shard")
+    ties4 = int((g["gprim"] != ring1.gprim.cpu().numpy())[v1_].sum())
+    rel_l = max(abs(rr["loss1"] - lf.item()) / abs(lf.item()) for rr in res)
+    rel_g = max(abs(rr["grad1"] - gf.item()) / abs(gf.item()) for rr in res)
+    rel_sl, rel_su = (max(x) for x in zip(*(step_off(rr, lf.item(), first)
+                                            for rr in res)))
+    if not (rel_l <= 1e-5 and rel_g <= 1e-5 and rel_sl <= 1e-5
+            and rel_su <= 1e-5
+            and all(rr["losses"][-1] < 0.5 * rr["losses"][0] for rr in res)):
+        raise AssertionError(f"train step at world {DIST_WORLD}: loss "
+                             f"{rel_l:g}, gradient {rel_g:g}, the step's "
+                             f"first loss {rel_sl:g} and update {rel_su:g} "
+                             "off (a)")
+    sb = r0["scalebench"]
+    if not (len(sb) == 6 and all(math.isfinite(v) and v > 0
+                                 for v in sb.values())):
+        raise AssertionError(f"scalebench: {sb}")
+    log(f"  ranks spawned and joined in {world_s:.1f} s (main's committed "
+        f"scene saved and the {DIST_WORLD} shards built in {prep_s:.1f} s); "
+        f"shards of {[rr['shard_prims'] for rr in res]} triangles, "
+        f"{[rr['shard_nodes'] for rr in res]} nodes, "
+        f"{[rr['shard_depth'] for rr in res]} levels")
+    log(f"  DP: every Hits field of the gathered {n} rays equal to (a)'s "
+        f"(B1 on {n // DIST_WORLD} rays a rank, checked against its plain "
+        f"version on {res[0]['errs']['rowtrace2_rays']} strided rays a rank)")
+    log(f"  ring: t bit-equal and valid equal to the ring with one shard, "
+        f"prim different on {ties4} hits (ties); each rank's first B2 "
+        f"launch equal to the plain version on "
+        f"{res[0]['errs']['packet_rays']} strided rays")
+    log(f"  train step: at scale 1 the loss and gradient all-reduced over "
+        f"gloo are {rel_l:g} and {rel_g:g} relative off (a)'s unsharded "
+        f"autograd, every rank's first step's loss and scale {rel_sl:g} and "
+        f"{rel_su:g}; rank 0's loss {r0['losses'][0]:.6g} -> "
+        f"{r0['losses'][-1]:.6g}")
+    log(f"  times on rank 0 (CUDA events, median of {DIST_REPS}; four ranks "
+        f"share the card): ring {r0['ring_ms']:.3f} ms a request, B2 "
+        f"{r0['ring_b2_ms']:.3f} ms of it, staging and waiting "
+        f"{r0['ring_ms'] - r0['ring_b2_ms']:.3f} ms; DP "
+        f"{r0['dp_ms']:.3f} ms; step {r0['step_ms']:.3f} ms")
+    log("  scalebench (ranks sharing one card: no hardware scaling): "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sb.items()))
+    log(f"  (a) for comparison: DP {dp_ms:.3f} ms, ring {ring1_ms:.3f} ms "
+        f"({ring1_b2:.3f} ms B2), step {np.median(step_ms):.3f} ms")
+
+    log("[29c] benchmarks.run() at its defaults")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench = benchmarks.run()
+    print(out.getvalue(), end="")
+    if not (len(bench) == 20
+            and all(math.isfinite(v) and v > 0 for v in bench.values())):
+        raise AssertionError(f"benchmarks: {bench}")
+    log(f"  benchmarks.run() {time.perf_counter() - t0:.1f} s (the "
+        "BENCHMARK_* lines above; host clock around synchronized requests)")
+    return {"rowtrace2": errs.get("rowtrace2", 0.0),
+            "packet": errs_b2.get("packet", 0.0)}
 
 
 def main() -> int:
@@ -4648,6 +5113,11 @@ def main() -> int:
     dyn_err = dynamic_phase(dev, verts, idx, scene, rays)
     log(f"  phase 28: {time.perf_counter() - t28:.1f} s")
 
+    # -- 29. distribution: DP, the train step, the ring, the benchmarks ----
+    t29 = time.perf_counter()
+    dist_err = dist_phase(dev.device, verts, idx, scene, rays)
+    log(f"  phase 29: {time.perf_counter() - t29:.1f} s")
+
     # rowtrace2: ms and bound_ms belong to the closest-hit request of the
     # treelet path (2^21 rays, 998,284 triangles), plain_ms to the same
     # rays (the counting plain version). packet: ms and bound_ms belong to
@@ -4673,7 +5143,10 @@ def main() -> int:
     # the checked 64x64 frames held against its plain version) and phase
     # 27's selections (the trainer's B1 launch on a strided slice, the
     # cube's B2 launch); packet's phase 28's dynamic_scene frames 0-1 and
-    # the morton tree's launch (strided slices)
+    # the morton tree's launch (strided slices); those of packet and
+    # rowtrace2 phase 29's requests in this process and in the spawned
+    # ranks (B1's DP launches and the first B2 launch of each ring,
+    # strided slices)
     kernels = {"kernels": [{
         "name": "rowtrace2", "route": "cuda",
         "source": "embree_tpu_torch/csrc/rowtrace2.cu",
@@ -4681,7 +5154,8 @@ def main() -> int:
         "launches": Launches.totals["rowtrace2"],
         "max_abs_err": max(small_err, full_err, lane_err["rowtrace2"],
                            wt_err["rowtrace2"], inst["rowtrace2"],
-                           pt_err["rowtrace2"], diff_err["rowtrace2"]),
+                           pt_err["rowtrace2"], diff_err["rowtrace2"],
+                           dist_err["rowtrace2"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "plain_rays": nb1,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -4692,7 +5166,8 @@ def main() -> int:
         "launches": Launches.totals["packet"],
         "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
                            lane_err["packet"], tut_pk_err, inst["packet"],
-                           pt_err["packet"], diff_err["packet"], dyn_err),
+                           pt_err["packet"], diff_err["packet"], dyn_err,
+                           dist_err["packet"]),
         "ms": pk_a["closest"]["ms"], "plain_ms": pk_plain_ms,
         "plain_rays": n,
         "bound_ms": pk_a["closest"]["bound"]["bound_ms"],

@@ -3,7 +3,7 @@
 Same sub-package and function names as the JAX package, so the
 counterpart of a module is found by its path; plain functions on torch
 tensors inside, an explicit `torch.device` everywhere, and hand-written
-CUDA kernels (`csrc/`) where the JAX package has Pallas kernels. So far:
+CUDA kernels (`csrc/`) where the JAX package has Pallas kernels:
 triangle, quad and subdivision-surface scenes; commit (SAH BVH4/BVH8 +
 packing, treelet scene for large meshes, the compressed per-tile
 quadtree for displaced Catmull-Clark surfaces); closest-hit / any-hit
@@ -32,7 +32,11 @@ the `convert` tool; the `triangle_geometry`,
 `instanced_geometry`, `user_geometry`, `intersection_filter`,
 `lazy_geometry`, `bvh_builder`, `bvh_access`, `viewer_stream`,
 `dynamic_scene` and `viewer_anim` tutorials (`render.tutorials`); the
-`buildbench` microbenchmark (`verify.buildbench`).
+`buildbench` microbenchmark (`verify.buildbench`); distribution on
+`torch.distributed` (`dist.sharding`: data-parallel rays and the sharded
+train step; `dist.prim_shard`: the primitive-sharded ray ring), the
+packet walks' public entries (`traverse.packet`), `verify.scalebench`
+and the traversal benchmark matrix `verify.benchmarks`.
 
 Quick start::
 

@@ -9,7 +9,9 @@ subdivision accel, so that both packages trace the same tiles, and
 `mb_accel_from_reference` for a motion-blur accel and its packed rows,
 `hair_clusters_from_reference` for the hair clusters of a curve
 geometry, `mb_curves_from_reference` for a motion-blur curve accel and
-`instance_entries_from_reference` for the instances of a scene;
+`instance_entries_from_reference` for the instances of a scene,
+`prim_sharded_from_reference` for one shard of a primitive-sharded
+scene;
 `material_table_from_reference` and `light_table_from_reference` carry
 the renderer's material and light tables across, so that both packages
 shade the same scene.
@@ -22,6 +24,7 @@ import torch
 from .build.bvh import BVH
 from .build.cbvh import CompressedTiles
 from .build.treelets import BLOCK_ROWS, TreeletScene, compact_treelets
+from .dist.prim_shard import PlacedShard, PrimShardedScene, place_shard
 from .render.lights import LightTable
 from .render.materials import MaterialTable
 from .scene.prims import TrianglePrims
@@ -121,6 +124,29 @@ def committed_scene_from_reference(arrays: dict, device) -> CommittedScene:
         world_lower=_tensor(arrays["world_lower"], f32, device, (3,)),
         world_upper=_tensor(arrays["world_upper"], f32, device, (3,)),
         backface_cull=bool(arrays["backface_cull"]))
+
+
+def prim_sharded_from_reference(arrays: dict, device,
+                                shard: int) -> PlacedShard:
+    """Shard `shard` of the JAX package's `PrimShardedScene` on `device`,
+    placed as dist/prim_shard.py::place_prim_sharded places it (padding
+    dropped, packed once for kernel B2). `arrays` maps each field of
+    `PrimShardedScene` (`lower`, `upper` (D, M, W, 3) f32, `child`,
+    `count` (D, M, W) i32, `prim_order` (D, P) i32, `v0`, `v1`, `v2`
+    (D, T, 3) f32, `geom_id`, `prim_id`, `uv_flip`, `gmap` (D, T) i32)
+    to a numpy array."""
+    f32, i32 = np.float32, np.int32
+    ps = PrimShardedScene(**{
+        k: np.array(arrays[k], f32 if k in ("lower", "upper", "v0", "v1",
+                                            "v2") else i32)
+        for k in PrimShardedScene._fields})
+    D, M, W = ps.child.shape
+    if ps.lower.shape != (D, M, W, 3) or ps.v0.shape[:1] != (D,):
+        raise ValueError(f"lower {ps.lower.shape}, child {ps.child.shape}, "
+                         f"v0 {ps.v0.shape}: not one stacked scene")
+    if not 0 <= shard < D:
+        raise ValueError(f"shard {shard} of {D}")
+    return place_shard(ps, shard, device)
 
 
 def compressed_accel_from_reference(arrays: dict, device) -> CompressedAccel:

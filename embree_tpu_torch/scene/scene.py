@@ -150,7 +150,7 @@ from ..traverse.hair_kernel import (PackedHair, PackedHairSet,
                                     pack_hair_cluster, pack_hair_set)
 from ..traverse.mb import MBAccel, MBCurves, intersect_mb_curves, ray_times
 from ..traverse.mb_kernel import PackedMB, intersect_mb_kernel, pack_mb
-from ..traverse.packet import _finalize_hits
+from ..traverse.packet import _finalize_hits, filter_restart
 from ..traverse.packet_kernel import (CompactScene, compact_scene,
                                       intersect_packet_kernel_raw,
                                       occluded_packet_kernel, pack_scene)
@@ -172,7 +172,6 @@ from .prims import TrianglePrims, empty_triangle_prims, prim_bounds_np
 # at least this many rays through it.
 ROWTRACE_MIN_PRIMS = 100_000
 ROWTRACE_MIN_RAYS = 65_536
-FILTER_MAX_ROUNDS = 1 << 16
 # the entry cull's slack on a box's exit distance (the JAX package's
 # `tmin <= tmax * 1.0000004`)
 CULL_SLACK = float(np.float32(1.0000004))
@@ -1462,18 +1461,9 @@ def _slab_accels(cs: CommittedScene, outer: int = -1) -> list:
 
 def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
                               coherent: bool, ray_mask, tm) -> Hits:
-    """Intersection filters as a restart wavefront (the JAX package's
-    formulation): run the unfiltered kernel for the closest hit, apply
-    the filter to the whole batch as tensor ops, and re-traverse the
-    rejected rays with tnear advanced just past the rejected hit. Rays
-    that accept or miss are retired with tfar = -inf, which costs the
-    kernels one node visit, so late rounds pay only for the undecided
-    rays. One `bool(...any())` per round is the only host sync.
-
-    Hits reach the filter in increasing t per ray. After a rejected hit
-    at distance t, other primitives at exactly the same t are skipped; a
-    forward-progress guard refuses the same primitive at a t that did
-    not grow, so the loop always ends (and is capped at 2^16 rounds).
+    """Intersection filters as a restart wavefront
+    (traverse/packet.py::filter_restart) over the unfiltered closest hit
+    of the whole scene.
 
     A box or leaf hit of the compressed accel is the entry into a volume,
     not a point on a surface: a ray restarted just past it starts inside
@@ -1481,47 +1471,16 @@ def _intersect_filter_restart(cs: CommittedScene, flat: Rays, filter_fn,
     round. Such a rejection, of the scene's own accel or one inside an
     instance, raises instead (grid mode tests triangles and restarts
     like any triangle mesh)."""
-    org, d, tnear_cur, tf = flat
-    R = tf.shape[0]
-    dev = tf.device
-    best = miss_hits((R,), tf, device=dev)
-    done = torch.zeros(R, dtype=torch.bool, device=dev)
-    prev_prim = torch.full((R,), -2, dtype=torch.int32, device=dev)
-    prev_t = torch.full((R,), -math.inf, dtype=torch.float32, device=dev)
-    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
-    slabs = _slab_accels(cs)
-    for _ in range(FILTER_MAX_ROUNDS if R else 0):
-        tf_eff = torch.where(done, -inf, tf)
-        h = _closest_flat(cs, Rays(org, d, tnear_cur, tf_eff), coherent,
-                          ray_mask, tm, R)
-        hitm = h.valid & ~done
-        accept = torch.as_tensor(
-            filter_fn(org, d, h.t, h.u, h.v, h.ng, h.geom_id, h.prim_id),
-            device=dev).to(torch.bool).broadcast_to(hitm.shape)
-        same = hitm & (h.gprim == prev_prim) & (h.t <= prev_t)
-        acc = hitm & accept & ~same
-        rej = hitm & ~acc
-        best = Hits(*(torch.where(
-            acc.reshape(acc.shape + (1,) * (a.ndim - acc.ndim)), a, b)
-            for a, b in zip(h, best)))
-        done = done | acc | ~h.valid
-        # strictly monotone: past the rejected t, and past the previous
-        # tnear if rounding re-found the same hit
-        adv = torch.nextafter(torch.maximum(h.t, tnear_cur), inf)
-        tnear_cur = torch.where(rej, adv, tnear_cur)
-        prev_prim = torch.where(rej, h.gprim, prev_prim)
-        prev_t = torch.where(rej, h.t, prev_t)
-        stuck = [rej & (h.gprim < 0) & (h.inst_id == iid)
-                 & torch.isin(h.geom_id, gids) for iid, gids, _ in slabs]
-        flags = torch.stack([(~done).any()] + [x.any() for x in stuck])
-        open_, *stuck = flags.tolist()
-        if any(stuck):
-            raise _not_ported(
-                "an intersection filter that rejects a hit of a "
-                f"bvh4.compressed.{slabs[stuck.index(True)][2]} accel")
-        if not open_:
-            break
-    return best
+    refusals = [
+        (lambda h, rej, iid=iid, gids=gids: rej & (h.gprim < 0)
+         & (h.inst_id == iid) & torch.isin(h.geom_id, gids),
+         _not_ported("an intersection filter that rejects a hit of a "
+                     f"bvh4.compressed.{mode} accel"))
+        for iid, gids, mode in _slab_accels(cs)]
+    R = flat.tnear.shape[0]
+    return filter_restart(
+        lambda r: _closest_flat(cs, r, coherent, ray_mask, tm, R),
+        flat, filter_fn, refusals)
 
 
 def scene_intersect(cs: CommittedScene, rays: Rays, isa: str = "default",
