@@ -30,7 +30,16 @@ the public entry points:
     compact accel, and against the eager tessellation of the same
     mesh (8.1M triangles through the packet kernel); the other modes and
     node flavors on a 960-face cage; and the `displacement_geometry`
-    tutorial;
+    tutorial; the same 3,968-face cage in the paper's other two leaf
+    modes, `grid` and `box`, committed on the host by two worker
+    processes of a pool while the card runs phase 5 on, through `scene_intersect`
+    / `scene_occluded` on the same rays and frame, both kernels against
+    their plain versions on 2^16 strided rays, `box` conservative
+    against the leaf hits;
+  * main-bvh8 (phase 8b): the 998,284-triangle sphere committed as a BVH8
+    packet scene (`tri_accel=bvh8.triangle4.packet`), the packet kernel
+    at W = 8 on the 2^21 rays and the frame, against its plain version,
+    a brute force and the BVH4 scene's answer;
   * the motion-blur path (kernels `mb` and `mb_occluded`): the
     998,284-triangle sphere as one `TriangleMeshMB` with three timesteps
     (kinked motion), 2^21 incoherent rays and a 1920x1080 frame at
@@ -56,8 +65,10 @@ the public entry points:
     `viewer.make_app().run` (kernel `cbvh`, smooth limit-surface normals
     through `Scene.interpolate_normal`), its commit, device bytes and
     frame split into B4, compressed_hits, the smooth-normal pass, shading
-    and unsort; the 160x96 frame against the reference binaries' render
-    (2.5 %), B4 against its plain version on its every ray, the normals
+    and unsort; the geometric-normal frame (`viewer.render`, equal to
+    `render_frame(smooth_normals=False)`) timed beside it and held
+    against the CPU on a 64x48 crop; the 160x96 frame against the
+    reference binaries' render (2.5 %), B4 against its plain version on its every ray, the normals
     against the CPU, and `Scene.interpolate` (derivatives, attributes) on
     2^20 random points; phase 24: the `subdivision_geometry` (B2, analytic
     patch derivatives; its 128x128 frame against the reference's render,
@@ -71,10 +82,14 @@ the public entry points:
     through every instance, bit for bit the same hits), the first 2^15
     rays held against the whole fold through the plain versions bit for
     bit, a brute force in every instance's space;
-    an instance of main's sphere (B1 serves the child) and two of a
-    compressed child (B4, B5); the `instanced_geometry`, `user_geometry`,
-    `intersection_filter`, `lazy_geometry`, `bvh_builder` and
-    `bvh_access` tutorials;
+    an instance of main's sphere (B1 serves the child), two of a
+    compressed child (B4, B5), four of a child that mixes triangles, user
+    spheres and a compressed subdivision mesh (the whole fold against
+    the plain versions, and the hits the entry cull drops counted); the
+    `instanced_geometry`, `user_geometry`, `intersection_filter` and
+    `lazy_geometry` tutorials (each card frame against the CPU's, each
+    card scene's primary rays through the kernels against the plain
+    fold), `bvh_builder` (in the host pool) and `bvh_access`;
   * the wavefront pathtracer (phase 26): the `pathtracer` tutorial's
     Cornell box through `make_app().run --benchmark` (256x256, 4 spp)
     and at 1024x1024 (B2), glass_sphere.xml through `load_xml` at 64x64,
@@ -128,6 +143,7 @@ import contextlib
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -172,7 +188,8 @@ from embree_tpu_torch.render.tutorials import (  # noqa: E402
     subdivision_geometry as subdiv_tutorial)
 from embree_tpu_torch.render.tutorials import (  # noqa: E402
     viewer as viewer_tutorial)
-from embree_tpu_torch.scene.scene import scene_intersect  # noqa: E402
+from embree_tpu_torch.scene.scene import (scene_intersect,  # noqa: E402
+                                          scene_occluded)
 from embree_tpu_torch.scene.subdiv_accel import (  # noqa: E402
     SubdivEval, fused_normal_table, sample_normal_fused)
 from embree_tpu_torch.subdiv.patches import (  # noqa: E402
@@ -261,6 +278,8 @@ B4_SMALL_LOG2 = 16         # rays of the other modes' plain comparisons
 # a conservative mode may report a hit this far behind the exact surface
 # (the JAX package's own bound for its conservative modes)
 CONSERVATIVE_EPS = 2e-2
+CAGE_MODES = ("grid", "box")   # main-c's cage in the paper's other leaves
+CAGE_TIMEOUT_S = 900       # a host-pool job, at most
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "ref_triangle_geometry_128.pfm")
 
@@ -324,6 +343,7 @@ DEMO_CAMERA = dict(from_=(18.21240425, 20.05745888, 15.46878433),
                    to=(0.0, 0.0, 0.0), fov=90.0)
 DEMO_FRAMES = 3            # timed frames of the viewer's benchmark
 DEMO_SEED = 0xB0B
+DEMO_CROP = (64, 48)       # the geometric-normal frame's crop on the CPU
 DEMO_INTERP_LOG2 = 20      # random (face, u, v) of Scene.interpolate
 TUTORIAL_SIZE = 512        # the phase 24 tutorials' frames
 # inst-grid (phase 25): (a)'s sphere committed once, 8 x 8 instances of
@@ -338,6 +358,11 @@ INST_PLAIN_LOG2 = 15
 INST_BRUTE_LOG2 = 12
 INST_B1_LOG2 = 17
 INST_TUTORIAL_SIZE = (64, 48)   # the card's frames held against the CPU's
+MIXED_SPHERES = np.asarray([[-3.0, 0.0, 0.0, 0.8], [0.0, 0.0, 3.5, 0.6],
+                            [0.0, 2.6, 0.0, 0.5]], np.float32)  # x y z r
+MIXED_CAGE_OFFSET = np.float32([5.0, 0.0, 0.0])
+MIXED_INSTANCES = 4
+MIXED_SPACING = 12.0
 CONE_FLOPS = 87
 RIBBON_FLOPS = 74
 # a ray rotated into a cluster's frame: origin and direction, 9 products
@@ -420,14 +445,25 @@ DIST_SCALE_RAYS = 262144   # scalebench's default batch
 
 
 T_START = time.perf_counter()
+T_WALL = time.time()    # the same instant on the clock the pool's workers share
+PHASES = []     # (id, seconds since the start) of each "[id] ..." heading
 
 
 def log(msg: str) -> None:
     """Print a line; a phase's heading ("[n] ...") gets the seconds since
     the script started."""
     if msg.startswith("["):
-        msg = f"{msg}  (at {time.perf_counter() - T_START:.0f} s)"
+        at = time.perf_counter() - T_START
+        PHASES.append((msg[1:msg.index("]")], at))
+        msg = f"{msg}  (at {at:.0f} s)"
     print(msg, flush=True)
+
+
+def phase_seconds():
+    """Seconds of each phase, from its heading to the next heading (the
+    last one's to now)."""
+    ends = [at for _, at in PHASES[1:]] + [time.perf_counter() - T_START]
+    return [(k, end - at) for (k, at), end in zip(PHASES, ends)]
 
 
 def unit_dirs(rng, n):
@@ -867,6 +903,81 @@ def packet_times(label, ps, flat, cull=False):
     return out
 
 
+def bvh8_phase(verts, idx, rays, frame, hits4):
+    """Phase 8b, main-bvh8: main's mesh committed under
+    `tri_accel=bvh8.triangle4.packet` (no treelet scene: B2 at W = 8
+    serves every request) through the entry points on main's 2^21 rays
+    (closest and any hit) and the coherent frame; B2 against its plain
+    version at 0 ulp on 2^16 strided rays and the frame's, against a brute
+    force, and against the BVH4 scene's answer `hits4` on the same rays
+    (valid equal, t within 1e-6 relative, prim ties counted); node count,
+    depth, bytes, times, visits and bounds. Returns B2's largest error."""
+    dev = ett.Device("ignore_config_files=1,tri_accel=bvh8.triangle4.packet")
+    scene8 = ett.Scene(dev)
+    scene8.attach(ett.TriangleMesh(verts, idx))
+    t0 = time.perf_counter()
+    cs8 = scene8.commit()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    ps = cs8.packet
+    if cs8.rowtrace is not None or ps.width != 8:
+        raise AssertionError("main-bvh8 is not a BVH8 packet scene")
+    log(f"  commit {commit_s:.2f} s")
+    packet_bytes_line("main-bvh8 committed", ps)
+    n = rays.tnear.numel()
+    with Launches() as lc:
+        h8 = scene8.intersect(rays)
+        o8 = scene8.occluded(rays)
+        hf8 = scene8.intersect(frame, coherent=True)
+        torch.cuda.synchronize()
+    lc.expect("main-bvh8: 2 intersect + 1 occluded requests", 0, 3)
+    check_hits("main-bvh8", h8, (n,))
+    check_hits("main-bvh8 frame", hf8, (FRAME[1], FRAME[0]))
+    if not torch.equal(o8, h8.valid):
+        raise AssertionError("main-bvh8: occluded disagrees with valid")
+    v4 = hits4.valid
+    if not torch.equal(h8.valid, v4):
+        raise AssertionError(f"main-bvh8: valid differs from the BVH4 "
+                             f"scene's on {int((h8.valid != v4).sum())} rays")
+    rel = float(((h8.t - hits4.t).abs() / hits4.t.abs())[v4].max())
+    ties = int((h8.prim_id != hits4.prim_id)[v4].sum())
+    if not rel <= 1e-6:
+        raise AssertionError(f"main-bvh8: t {rel:g} relative off the BVH4 "
+                             "scene's")
+    log(f"  main-bvh8 against the BVH4 scene (B1) on the 2^{LOG2_RAYS} "
+        f"rays: valid equal ({int(v4.sum())} hits), t within {rel:g} "
+        f"relative, prim differs on {ties} hits (ties)")
+    step = max(1, n >> 16)
+    strided = Rays(*(a[::step][:1 << 16].contiguous() for a in rays))
+    err = 0.0
+    for label, r, occl in (
+            (f"2^16 rays of the main path (one in {step}), closest",
+             strided, False),
+            (f"2^16 rays of the main path (one in {step}), any hit",
+             strided, True)):
+        e, _ = compare_packet_plain(ps, r, occl, False, "main-bvh8, " + label)
+        err = max(err, e)
+    frame_flat = flat_rays(frame)
+    nf = frame_flat.tnear.numel()
+    fstep = max(1, nf >> 16)
+    fr = Rays(*(a[::fstep][:1 << 16].contiguous() for a in frame_flat))
+    e, _ = compare_packet_plain(ps, fr, False, False, "main-bvh8, 2^16 rays "
+                                f"of the frame (one in {fstep}), closest")
+    err = max(err, e)
+    brute_check("main-bvh8", cs8.tris, rays, h8.valid, h8.t)
+    packet_times("main-bvh8, 2^21 incoherent", ps, rays)
+    packet_times("main-bvh8, coherent frame", ps, frame_flat)
+    for label, fn in (
+            ("intersect request, main-bvh8, 2^21 rays",
+             lambda: scene8.intersect(rays)),
+            ("occluded request, main-bvh8, 2^21 rays",
+             lambda: scene8.occluded(rays)),
+            ("intersect request, main-bvh8, coherent frame",
+             lambda: scene8.intersect(frame, coherent=True))):
+        log(f"  {label}: {time_ms(fn):.3f} ms")
+    return err
+
+
 def shell_rays(rng, n, radius, jitter, device, retire_every=0):
     """Rays from a shell of `radius` aimed at the origin with `jitter`;
     every `retire_every`-th ray is retired (tfar = -inf)."""
@@ -925,6 +1036,137 @@ def subdiv_scene(device_cfg, mesh, levels, mode=None, flavor="com",
     scene.set_levels(*levels)
     scene.commit()
     return scene
+
+
+def commit_cage(mode):
+    """main-c's cage committed on the host (`device=cpu`) in `mode`; a job
+    of the host pool, run beside the card's phases. Returns the committed
+    scene as `torch.save` bytes and the wall-clock time it finished."""
+    torch.set_num_threads(1)
+    mesh = sphere_cage(SUBDIV_CAGE, noise_displacement)
+    t0 = time.perf_counter()
+    sc = subdiv_scene(",device=cpu", mesh, SUBDIV_LEVELS, mode)
+    commit_s = time.perf_counter() - t0
+    buf = io.BytesIO()
+    torch.save({"cs": sc.committed, "commit_s": commit_s,
+                "faces": len(mesh[1])}, buf)
+    return buf.getvalue(), time.time()
+
+
+def run_bvh_builder():
+    """The `bvh_builder` tutorial (rtcBuildBVH over 20,000 boxes, host
+    numpy, no kernel); a job of the host pool. Returns its exit code,
+    its lines and its seconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bvh_builder.main(["-rtcore", "ignore_config_files=1"])
+    return rc, out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def join_cage_commits(jobs, device):
+    """Wait for the host pool's commits and load each committed scene onto
+    `device`: {mode: (CommittedScene, commit s, load s, faces)}."""
+    out = {}
+    t0 = time.perf_counter()
+    for mode, job in jobs.items():
+        blob, done = job.get(timeout=CAGE_TIMEOUT_S)
+        t1 = time.perf_counter()
+        saved = torch.load(io.BytesIO(blob), map_location=device,
+                           weights_only=False)
+        torch.cuda.synchronize()
+        out[mode] = (saved["cs"], saved["commit_s"],
+                     time.perf_counter() - t1, saved["faces"])
+        log(f"  the {mode} commit ({saved['commit_s']:.1f} s) finished "
+            f"{done - T_WALL:.0f} s after the start")
+    log(f"  waited {time.perf_counter() - t0:.1f} s for the host pool and "
+        "the loads")
+    return out
+
+
+def cage_modes_phase(cages, rays, frame, leaf_hits, leaf_frame_hits,
+                     eager_hits):
+    """Phase 12b: main-c's cage in `grid` and `box` mode (committed by
+    `start_cage_commits`) through `scene_intersect` / `scene_occluded` on
+    main's 2^21 rays and the 1920x1080 frame: B4 and B5 against their
+    plain versions at 0 ulp on 2^B4_SMALL_LOG2 strided rays, the hit
+    fields, every hit occluded, `box` conservative against main-c's leaf
+    hits, `grid` beside the eager triangles; commit s, device bytes,
+    times, counters and bounds. Returns B4's and B5's largest errors."""
+    n = rays.tnear.numel()
+    step = n >> B4_SMALL_LOG2
+    strided = Rays(*(a[::step][:1 << B4_SMALL_LOG2].contiguous()
+                     for a in rays))
+    frame_flat = flat_rays(frame)
+    err = occ_err = 0.0
+    for mode, (cs, commit_s, load_s, faces) in cages.items():
+        pc = cs.compressed_kernel
+        tiles_a_face = (1 << (SUBDIV_LEVELS[0] - SUBDIV_LEVELS[1])) ** 2
+        if (pc is None or pc.mode != mode or cs.tris.num_prims != 0
+                or pc.num_tiles != faces * tiles_a_face
+                or cs.compressed.tiles.space is not None
+                or pc.tiles.device.type != rays.tnear.device.type):
+            raise AssertionError(f"{mode}: not main-c's cage as a compact "
+                                 "accel on the card")
+        log(f"  {mode}: commit {commit_s:.1f} s on the host (a worker of "
+            f"the host pool), loaded onto the card in {load_s:.2f} s; "
+            f"{pc.num_tiles} tiles, top BVH4 of {pc.num_nodes} nodes in "
+            f"{pc.top_depth} levels; a tile uses {tile_used_bytes(pc)} B in "
+            f"a compact record of {4 * pc.tiles.shape[1]} B (the JAX "
+            f"package's rows: {tile_row_bytes(pc)} B); the compact accel "
+            f"{pc.device_bytes / 1e6:.1f} MB (the rows "
+            f"{packed_row_bytes(pc) / 1e6:.1f} MB), the committed scene "
+            f"{_scene_bytes(cs) / 1e6:.1f} MB")
+        with Launches() as lc:
+            h = scene_intersect(cs, rays)
+            o = scene_occluded(cs, rays)
+            hf = scene_intersect(cs, frame, coherent=True)
+            of = scene_occluded(cs, frame)
+            torch.cuda.synchronize()
+        lc.expect(f"{mode} requests", 0, 0)
+        lc.expect_cbvh(f"{mode}: 2 intersect + 2 occluded requests", 2, 2)
+        check_subdiv_hits(f"{mode}, incoherent", h, (n,), faces)
+        check_subdiv_hits(f"{mode}, frame", hf, (FRAME[1], FRAME[0]), faces)
+        for label, hh, oo in (("incoherent", h, o), ("frame", hf, of)):
+            if (hh.valid & ~oo).any():
+                raise AssertionError(f"{mode}, {label}: a hit is not "
+                                     "occluded")
+            frac = float(hh.valid.float().mean())
+            if not 0.05 < frac < 0.9:
+                raise AssertionError(f"{mode}, {label}: hit fraction {frac}")
+            log(f"  {mode}, {label}: hit fraction {frac:.4f}, occluded "
+                f"{float(oo.float().mean()):.4f}, occluded covers every hit")
+        e, _, _, oe = compare_cbvh_plain(
+            pc, strided, f"{mode}, {pc.num_tiles} tiles, 2^{B4_SMALL_LOG2} "
+            f"rays of the main path (one in {step})")
+        err, occ_err = max(err, e), max(occ_err, oe)
+        if mode == "box":
+            check_conservative("box vs main-c's leaf hits, incoherent",
+                               leaf_hits, h)
+            check_conservative("box vs main-c's leaf hits, frame",
+                               leaf_frame_hits, hf)
+        else:
+            same = float((h.valid == eager_hits.valid).float().mean())
+            both = h.valid & eager_hits.valid
+            dabs = (h.t - eager_hits.t)[both].abs()
+            log(f"  grid vs the eager triangles of phase 9: valid equal on "
+                f"{100 * same:.4f} % of the rays, |dt| 99th percentile "
+                f"{float(dabs.quantile(0.99)):.3g}, max "
+                f"{float(dabs.max()):.3g} (cells split along the other "
+                "diagonal)")
+        cbvh_times(f"{pc.num_tiles} tiles {mode}, 2^{LOG2_RAYS} incoherent",
+                   pc, rays)
+        cbvh_times(f"{pc.num_tiles} tiles {mode}, {FRAME[0]}x{FRAME[1]} "
+                   "coherent frame", pc, frame_flat)
+        for label, fn in (
+                ("intersect request, 2^21 rays",
+                 lambda: scene_intersect(cs, rays)),
+                ("occluded request, 2^21 rays",
+                 lambda: scene_occluded(cs, rays)),
+                ("intersect request, coherent frame",
+                 lambda: scene_intersect(cs, frame, coherent=True))):
+            log(f"  {mode} {label}: {time_ms(fn):.3f} ms")
+    return err, occ_err
 
 
 def compare_cbvh_plain(pc, rays, label, t_in=None):
@@ -2007,6 +2249,40 @@ def tensor_bytes(*tensors):
     return sum(a.numel() * a.element_size() for a in tensors)
 
 
+def demo_crop_check(state, cam, w, h, device):
+    """`viewer.render` (geometric normals) of a DEMO_CROP crop in the
+    middle of the w x h frame, on the card and on the CPU (the committed
+    scene and the viewer's tables moved there through torch.save): at
+    most 0.5 % of the pixels more than 1.5/255 apart."""
+    cw, ch = DEMO_CROP
+    x0, y0 = (w - cw) // 2, (h - ch) // 2
+    keys = ("cscene", "materials", "geom_mat", "textures", "kd_tex",
+            "tri_uv", "prim_base")
+    buf = io.BytesIO()
+    torch.save([state[k] for k in keys], buf)
+    buf.seek(0)
+    cpu = torch.device("cpu")
+    imgs = []
+    for dv, sargs in ((device, [state[k] for k in keys]),
+                      (cpu, torch.load(buf, map_location=cpu,
+                                       weights_only=False))):
+        vx, vy, vz, p = cam.ispc_camera(w, h, device=dv)
+        perm, inv = pixel_morton_order_device(cw, ch, dv)
+        imgs.append(viewer_tutorial.render(
+            *sargs, vx, vy, vz + x0 * vx + y0 * vy, p, perm, inv,
+            width=cw, height=ch).cpu().numpy())
+    diff = np.abs(imgs[0] - imgs[1]).max(-1)
+    bad = float((diff > 1.5 / 255).mean())
+    lit = float((imgs[0].max(-1) > 0).mean())
+    if not (np.isfinite(imgs[0]).all() and bad <= 0.005 and lit > 0.3):
+        raise AssertionError(f"the geometric-normal crop: {bad:.4%} of the "
+                             f"pixels differ from the CPU's, {lit:.2%} lit")
+    log(f"  geometric-normal frame, the {cw}x{ch} crop at ({x0}, {y0}) of "
+        f"the {w}x{h} frame: card against CPU {bad:.4%} of the pixels more "
+        f"than 1.5/255 apart (budget 0.5 %), largest difference "
+        f"{float(diff.max()):.3g}, {lit:.2%} lit")
+
+
 def demo_phase(device, prof):
     """Phase 23: the paper's demo through `viewer.make_app().run`, its
     commit, device bytes, the frame split into its parts, B4 against its
@@ -2078,9 +2354,33 @@ def demo_phase(device, prof):
     st = ck.intersect_compressed_kernel(pc, rays, t_in=rays.tfar)
     nrm = viewer_tutorial.shade_normals(scene, valid, gidh, prim, u, v, ng)
     flat_img = viewer_tutorial._shade(kd, valid, d, nrm)
+    # the geometric-normal frame: `render` and render_frame(smooth_normals=
+    # False) give one image, B4's hits shaded with the raw Ng (1, 0, 0)
+    geo_args = (*args[:7], *cam.ispc_camera(w, h, device=device), perm, inv)
+    with Launches() as lc:
+        geo = viewer_tutorial.render(*geo_args, width=w, height=h)
+        geo_rf, _ = viewer_tutorial.render_frame(state, cam, (w, h),
+                                                 smooth_normals=False)
+        demo_crop_check(state, cam, w, h, device)
+        torch.cuda.synchronize()
+    lc.expect("the geometric-normal frames", 0, 0)
+    lc.expect_cbvh("the geometric-normal frames and the crop", 3, 0)
+    dummy = torch.tensor([1.0, 0.0, 0.0], device=device)
+    if not (torch.equal(geo, geo_rf) and (ng[valid] == dummy).all()
+            and geo.shape == (h, w, 3)):
+        raise AssertionError("viewer.render and render_frame(smooth_normals="
+                             "False) differ, or a hit's raw Ng is not B4's")
+    log(f"  {w}x{h} geometric-normal frame: viewer.render equals "
+        "render_frame(smooth_normals=False) bit for bit; every hit's raw Ng "
+        "is B4's (1, 0, 0)")
     parts = {
         "frame (render_frame)": lambda: viewer_tutorial.render_frame(
             state, cam, (w, h)),
+        "geometric-normal frame (render)": lambda: viewer_tutorial.render(
+            *geo_args, width=w, height=h),
+        "render_frame(smooth_normals=False)":
+            lambda: viewer_tutorial.render_frame(state, cam, (w, h),
+                                                 smooth_normals=False),
         "trace + materials (_trace)": lambda: viewer_tutorial._trace(
             *args, width=w, height=h),
         "B4 (cbvh kernel)": lambda: ck.intersect_compressed_kernel(
@@ -2434,7 +2734,109 @@ def instance_brute_check(label, top_cs, child_cs, flat, hits):
         f"equal on the {int(untied.sum())} untied hits")
 
 
-def instance_phase(device, main_scene):
+def mixed_child_check(device, rng):
+    """Phase 25's mixed child: one scene that holds a triangle sphere
+    (B2), three user spheres (torch ops) and `sphere_cage(32)` in leaf
+    mode (B4, B5), instanced MIXED_INSTANCES times. The request against
+    the whole fold through the plain versions, bit for bit; then the
+    child traced in every instance's space without the entry cull: the
+    hits the cull drops are counted, and each must be a user or
+    subdivision hit (ROADMAP.md C.2: the cull's boxes are the triangles'
+    alone, as in the JAX package). Returns the largest error (0)."""
+    child = ett.Scene(ett.Device(
+        "ignore_config_files=1,subdiv_accel=bvh4.compressed.leaf"))
+    tv, ti = triangle_sphere((0.0, 0.0, 0.0), 1.0, 60)
+    child.attach(ett.TriangleMesh(tv, ti))                          # geom 0
+    sph = MIXED_SPHERES
+    child.attach(ett.UserGeometry(
+        len(sph), lambda ids: (sph[ids, :3] - sph[ids, 3:],
+                               sph[ids, :3] + sph[ids, 3:]),
+        user_geometry.make_sphere_intersect(
+            torch.from_numpy(sph).to(device))))                    # geom 1
+    cv, cc, ci, disp = sphere_cage(SUBDIV_SMALL_CAGE, noise_displacement)
+    child.attach(ett.SubdivMesh(cv + MIXED_CAGE_OFFSET, cc, ci,
+                                displacement=disp))                # geom 2
+    child.set_levels(*SUBDIV_SMALL_LEVELS)
+    t0 = time.perf_counter()
+    ccs = child.commit()
+    torch.cuda.synchronize()
+    child_s = time.perf_counter() - t0
+    if (ccs.compressed_kernel is None or len(ccs.users) != 1
+            or ccs.tris.num_prims != len(ti)):
+        raise AssertionError("the mixed child is not triangles, a user "
+                             "geometry and a compact compressed accel")
+    top = ett.Scene(ett.Device("ignore_config_files=1"))
+    xs = grid_instances(rng)[:MIXED_INSTANCES]
+    for k, x in enumerate(xs):
+        x[:, 3] = (0.0, 0.0, MIXED_SPACING * k)
+        top.attach(ett.Instance(child, x))
+    top_cs = top.commit()
+    n = 1 << INST_PLAIN_LOG2
+    centres = np.array([x[:, 3] for x in xs], np.float32)
+    tgt = (centres[rng.integers(0, len(xs), n)]
+           + rng.uniform(-6.0, 6.0, (n, 3))).astype(np.float32)
+    org = rng.uniform((-12.0, -12.0, -12.0),
+                      (12.0, 12.0, 12.0 + MIXED_SPACING * len(xs)),
+                      (n, 3)).astype(np.float32)
+    d = tgt - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = ett.make_rays(org, d, device=device)
+    label = (f"a mixed child ({len(ti)} triangles, {len(sph)} user "
+             f"spheres, sphere_cage({SUBDIV_SMALL_CAGE}) leaf at levels "
+             f"{SUBDIV_SMALL_LEVELS}; committed in {child_s:.1f} s), "
+             f"{MIXED_INSTANCES} instances, 2^{INST_PLAIN_LOG2} rays")
+    with Launches() as lc:
+        err = fold_against_plain(label, top, rays)
+    if lc.packet < 1 or lc.cbvh < 1 or lc.cbvh_occluded < 1:
+        raise AssertionError(f"the mixed child: {lc.packet} B2, {lc.cbvh} "
+                             f"B4 and {lc.cbvh_occluded} B5 launches")
+    log(f"  the mixed child's requests (kernels, then the plain fold): "
+        f"{lc.packet} B2, {lc.cbvh} B4, {lc.cbvh_occluded} B5 launches")
+    hits = top.intersect(rays)
+    flat = flat_rays(rays)
+    best_t = torch.full_like(flat.tfar, math.inf)
+    best_g = torch.full_like(hits.geom_id.reshape(-1), -1)
+    for inst in top_cs.instances:
+        lorg, ldir = _to_local(inst, flat)
+        h = scene_intersect(ccs, Rays(lorg, ldir, flat.tnear, flat.tfar))
+        closer = h.valid & (h.t < best_t)
+        best_t = torch.where(closer, h.t, best_t)
+        best_g = torch.where(closer, h.geom_id, best_g)
+    seen = torch.isfinite(best_t)
+    valid = hits.valid.reshape(-1)
+    lost = seen & ~valid
+    farther = seen & valid & (hits.t.reshape(-1) > best_t * (1 + 2e-2))
+    dropped = lost | farther
+    if (valid & ~seen).any():
+        raise AssertionError("the mixed child: the fold hit where the child "
+                             "without the cull has no hit")
+    if (best_g[dropped] == 0).any():
+        raise AssertionError("the mixed child: the cull dropped a triangle "
+                             "hit")
+    if not lost.any():
+        raise AssertionError("the mixed child: the cull dropped no hit")
+    log(f"  the mixed child without the entry cull (the child's own request "
+        f"in each instance's space): {int(seen.sum())} hits; the fold has "
+        f"{int(valid.sum())}: the cull drops {int(dropped.sum())} "
+        f"({int(lost.sum())} rays left without a hit, {int(farther.sum())} "
+        f"with a farther one), {int((best_g[dropped] == 1).sum())} on the "
+        f"user spheres and {int((best_g[dropped] == 2).sum())} on the "
+        "subdivision mesh, none on the triangles (ROADMAP.md C.2, as in the "
+        "JAX package)")
+    return err
+
+
+def requests_of(state):
+    """A tutorial state's committed scene answering `intersect` /
+    `occluded` as a Scene does (its intersection filter included)."""
+    cs, filter_fn = state["cscene"], state.get("filter_fn")
+    return types.SimpleNamespace(
+        intersect=lambda rays, coherent=False: scene_intersect(
+            cs, rays, filter_fn=filter_fn, coherent=coherent),
+        occluded=lambda rays: scene_occluded(cs, rays))
+
+
+def instance_phase(device, main_scene, builder_job):
     """Phase 25: inst-grid (64 instances of (a)'s 99,012-triangle sphere,
     the child committed once, over a ground plane) through the entry
     points: request times, B2 launches a request, the share of rays each
@@ -2444,8 +2846,9 @@ def instance_phase(device, main_scene):
     whole fold through the plain versions on 2^15 rays; a brute force in
     every instance's space; one instance of main's sphere (B1 serves the
     child) and two of a compressed child (B4, B5); the six tutorials of
-    instances, user geometry and the rtcore facade. Returns the largest
-    error of each kernel against its plain version (all 0)."""
+    instances, user geometry and the rtcore facade (`bvh_builder` the
+    host pool's `builder_job`). Returns the largest error of each kernel
+    against its plain version (all 0)."""
     rng = np.random.default_rng(INST_SEED)
     dev = ett.Device("ignore_config_files=1")
     verts, idx = triangle_sphere((0.0, 0.0, 0.0), 1.0, SMALL_RES)
@@ -2672,8 +3075,11 @@ def instance_phase(device, main_scene):
         f"two instances of sphere_cage({SUBDIV_SMALL_CAGE}) leaf at levels "
         f"{SUBDIV_SMALL_LEVELS}, 2^16 rays (B4, B5 serve the child)", pair,
         c_rays)
+    mixed_err = mixed_child_check(device, rng)
 
-    # the tutorials
+    # the tutorials: 5 frames each through app.run; the card's frame
+    # against the CPU's; each card scene's primary rays through the
+    # kernels against the plain fold
     tut_err = 0.0
     for name, mod, per_frame in (
             ("instanced_geometry", instanced_geometry, 5),
@@ -2707,33 +3113,31 @@ def instance_phase(device, main_scene):
                                         != states[1]["built"]):
             raise AssertionError("lazy_geometry built other spheres on the "
                                  "card than on the CPU")
-        if name == "instanced_geometry":
-            e = fold_against_plain(
-                f"{name} primary rays {TUTORIAL_SIZE}x{TUTORIAL_SIZE}",
-                app.build_scene(app)["scene"],
-                primary_rays(app.camera, TUTORIAL_SIZE, TUTORIAL_SIZE,
-                             device=device), coherent=True)
-            tut_err = max(tut_err, e)
         log(f"  {name} at {TUTORIAL_SIZE}x{TUTORIAL_SIZE}: {fps:.1f} frames/s "
             f"(BENCHMARK_RENDER_AVG, host clock; {lc.packet} B2 launches in "
             f"5 frames); {INST_TUTORIAL_SIZE[0]}x{INST_TUTORIAL_SIZE[1]}: "
             f"{bad:.4%} of the pixels differ from this package's CPU render "
             "(budget 0.5 %)")
-    for name, fn in (("bvh_builder", lambda: bvh_builder.main(
-            ["-rtcore", "ignore_config_files=1"])),
-            ("bvh_access", lambda: bvh_access.main(
-                ["-rtcore", "ignore_config_files=1"]))):
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = fn()
-        lines = out.getvalue().splitlines()
-        if rc != 0 or not lines:
-            raise AssertionError(f"{name} returned {rc}")
-        log(f"  {name} ({time.perf_counter() - t0:.1f} s): "
-            + ("; ".join(lines) if name == "bvh_builder" else lines[-1]))
-    return {"packet": max(err, tut_err), "rowtrace2": b1_err,
-            "cbvh": cb_err, "cbvh_occluded": cb_err}
+        # lazy_geometry's card scene holds the spheres its frame built
+        tut_err = max(tut_err, fold_against_plain(
+            f"{name} primary rays {TUTORIAL_SIZE}x{TUTORIAL_SIZE}",
+            requests_of(states[0]),
+            primary_rays(app.camera, TUTORIAL_SIZE, TUTORIAL_SIZE,
+                         device=device), coherent=True))
+    rc, lines, sec = builder_job.get(timeout=CAGE_TIMEOUT_S)
+    if rc != 0 or not lines:
+        raise AssertionError(f"bvh_builder returned {rc}")
+    log(f"  bvh_builder ({sec:.1f} s in the host pool): " + "; ".join(lines))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bvh_access.main(["-rtcore", "ignore_config_files=1"])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"bvh_access returned {rc}")
+    log(f"  bvh_access: {lines[-1]}")
+    return {"packet": max(err, tut_err, mixed_err), "rowtrace2": b1_err,
+            "cbvh": max(cb_err, mixed_err),
+            "cbvh_occluded": max(cb_err, mixed_err)}
 
 
 class KeyedSampler:
@@ -4031,6 +4435,12 @@ def main() -> int:
                     help="stop after the kernel-vs-plain phases on small "
                          "scenes (prints no result line)")
     args = ap.parse_args()
+    # the host pool (opened after phase 4) is terminated however run ends
+    with contextlib.ExitStack() as stack:
+        return run(args, stack)
+
+
+def run(args, stack) -> int:
     t_start = time.perf_counter()
 
     # -- 1. device ---------------------------------------------------------
@@ -4150,6 +4560,15 @@ def main() -> int:
     log(f"  3 intersect + 1 occluded requests of 2^{LOG2_RAYS} rays in "
         f"{requests_s:.3f} s, {lc.rowtrace2} rowtrace2 launches, "
         f"hit fraction {frac:.4f}, occluded == valid")
+    # host work that launches no kernel runs in worker processes beside
+    # the card's phases
+    pool = stack.enter_context(
+        multiprocessing.get_context("spawn").Pool(len(CAGE_MODES)))
+    cage_jobs = {m: pool.apply_async(commit_cage, (m,)) for m in CAGE_MODES}
+    builder_job = pool.apply_async(run_bvh_builder)
+    log(f"  main-c's cage in {' and '.join(CAGE_MODES)} mode: committing on "
+        f"the host in a pool of {len(CAGE_MODES)} worker processes (for "
+        "phase 12b), then bvh_builder (for phase 25)")
 
     # -- 5. treelet path: correctness at full size ---------------------------
     log("[5] treelet path: correctness at full size")
@@ -4465,6 +4884,12 @@ def main() -> int:
         f"{time_ms(lambda: pk.occluded_packet_kernel(scs.packet, rays)):.3f} "
         "ms unsorted; the scene path does not sort")
 
+    # -- 8b. main-bvh8: the packet kernel at W = 8 on main ------------------
+    log(f"[8b] main-bvh8: triangle_sphere({SCENE_RES}) as a BVH8 packet scene "
+        f"(tri_accel=bvh8.triangle4.packet), 2^{LOG2_RAYS} rays and the "
+        "frame")
+    bvh8_err = bvh8_phase(verts, idx, rays, frame, hits)
+
     # -- 9. the compressed subdivision path at full size --------------------
     log(f"[9] compressed path: sphere_cage({SUBDIV_CAGE}) displaced by fBm "
         f"noise, set_levels{SUBDIV_LEVELS}, bvh4.compressed.leaf")
@@ -4553,7 +4978,7 @@ def main() -> int:
     check_subdiv_hits("eager", h_e, (n,), faces)
     check_conservative("leaf vs eager triangles, incoherent", h_e, h_c)
     check_conservative("leaf vs eager triangles, frame", h_ef, h_cf)
-    del eager, ecs, h_e, h_ef
+    del eager, ecs, h_ef
 
     # -- 10. the other modes and node flavors on the smaller cage -----------
     log(f"[10] sphere_cage({SUBDIV_SMALL_CAGE}), set_levels"
@@ -4704,6 +5129,16 @@ def main() -> int:
         log(f"  {label}: {time_ms(fn):.3f} ms")
     log(f"  plain versions (counting), 2^{B4_PLAIN_LOG2} rays: closest "
         f"{cb_plain_ms:.0f} ms, occluded {cbo_plain_ms:.0f} ms")
+
+    # -- 12b. main-c in grid and box mode -----------------------------------
+    log(f"[12b] main-c in the paper's other leaf modes: sphere_cage("
+        f"{SUBDIV_CAGE}) at set_levels{SUBDIV_LEVELS} as "
+        + " and ".join(f"bvh4.compressed.{m}" for m in CAGE_MODES)
+        + f", 2^{LOG2_RAYS} rays and the frame")
+    cages = join_cage_commits(cage_jobs, dev.device)
+    cage_err, cage_occ_err = cage_modes_phase(cages, rays, frame, h_c, h_cf,
+                                              h_e)
+    del cages, h_e
 
     # -- 13. the motion-blur path at full size ------------------------------
     log(f"[13] motion-blur path: triangle_sphere({SCENE_RES}) as one "
@@ -5086,7 +5521,7 @@ def main() -> int:
     # -- 25. instances, user geometry, the rtcore facade: inst-grid ---------
     log(f"[25] inst-grid: {INST_GRID ** 2} instances of (a)'s sphere over a "
         "ground plane; instanced main and compressed children; six tutorials")
-    inst = instance_phase(dev.device, scene)
+    inst = instance_phase(dev.device, scene, builder_job)
 
     # -- 26. the pathtracer: pt-cornell, pt-glass, pt-glass-main ------------
     log("[26] pathtracer: pt-cornell, pt-glass and pt-glass-main")
@@ -5131,7 +5566,9 @@ def main() -> int:
     # main-mb, plain_ms to their first 2^16 rays; mb_occluded's
     # max_abs_err counts the rays whose answer differs; cbvh's launches and
     # error include the demo (phase 23) and the interpolation tutorial,
-    # packet's the two tutorials of phase 24. hair_cone(_occluded)
+    # packet's the two tutorials of phase 24; the launches and errors of
+    # cbvh and cbvh_occluded include main-c in grid and box mode (phase
+    # 12b), packet's main-bvh8 (phase 8b). hair_cone(_occluded)
     # and hair_ribbon(_occluded): ms and bound_ms belong to the one launch
     # over every cluster of main-hair (cone) and hairball-flat (ribbon) for
     # the 2^21 incoherent rays, plain_ms to their first 2^16 rays. Every
@@ -5164,7 +5601,7 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/packet.cu",
         "replaces": "embree_tpu/traverse/pallas_packet.py:261",
         "launches": Launches.totals["packet"],
-        "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err,
+        "max_abs_err": max(pk_small_err, pk_full_err, pk_a_err, bvh8_err,
                            lane_err["packet"], tut_pk_err, inst["packet"],
                            pt_err["packet"], diff_err["packet"], dyn_err,
                            dist_err["packet"]),
@@ -5178,9 +5615,9 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/cbvh.cu",
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:175",
         "launches": Launches.totals["cbvh"],
-        "max_abs_err": max(cb_small_err, cb_full_err, lane_err["cbvh"],
-                           wt_err["cbvh"], demo_err, tut_cb_err,
-                           inst["cbvh"]),
+        "max_abs_err": max(cb_small_err, cb_full_err, cage_err,
+                           lane_err["cbvh"], wt_err["cbvh"], demo_err,
+                           tut_cb_err, inst["cbvh"]),
         "ms": cb_inc["closest"]["ms"], "plain_ms": cb_plain_ms,
         "plain_rays": nb4,
         "bound_ms": cb_inc["closest"]["bound"]["bound_ms"],
@@ -5191,7 +5628,7 @@ def main() -> int:
         "source": "embree_tpu_torch/csrc/cbvh.cu",
         "replaces": "embree_tpu/traverse/pallas_cbvh.py:771",
         "launches": Launches.totals["cbvh_occluded"],
-        "max_abs_err": max(cbo_small_err, cbo_full_err,
+        "max_abs_err": max(cbo_small_err, cbo_full_err, cage_occ_err,
                            lane_err["cbvh_occluded"],
                            wt_err["cbvh_occluded"], inst["cbvh_occluded"]),
         "ms": cb_inc["occluded"]["ms"], "plain_ms": cbo_plain_ms,
@@ -5245,6 +5682,8 @@ def main() -> int:
                                  "the driven paths")
 
     # -- 9. result lines ------------------------------------------------------
+    log("phase seconds: " + ", ".join(f"[{k}] {sec:.1f}"
+                                      for k, sec in phase_seconds()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps(kernels))

@@ -83,6 +83,12 @@ class TreeletScene(NamedTuple):
                    for a in (self.nodes, self.pairs, self.fan_boxes,
                              self.mid_boxes))
 
+    @property
+    def hbm_bytes(self) -> int:
+        """Bytes of the JAX package's treelet blocks for these treelets:
+        (Ntr_pad, BLOCK_ROWS, 128) f32."""
+        return 4 * self.nodes.shape[0] * BLOCK_ROWS * 128
+
 
 def _box_rows(boxes: np.ndarray) -> np.ndarray:
     """(n, 6) boxes [lo3 hi3] as (n, BOX_WORDS) rows with zero pads."""

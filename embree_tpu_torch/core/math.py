@@ -61,6 +61,14 @@ class AffineSpace(NamedTuple):
     vz: torch.Tensor
     p: torch.Tensor
 
+    def xfm_point(self, q):
+        return (q[..., 0:1] * self.vx + q[..., 1:2] * self.vy
+                + q[..., 2:3] * self.vz + self.p)
+
+    def xfm_vector(self, q):
+        return q[..., 0:1] * self.vx + q[..., 1:2] * self.vy \
+            + q[..., 2:3] * self.vz
+
 
 def lookat(eye, point, up):
     """Reference common/math/affinespace.h:76-81: Z=to-from, U=up x Z,

@@ -271,10 +271,10 @@ def make_prim_sharded_intersect(mesh: DeviceMesh, axis: str = "sp",
     return intersect
 
 
-def prim_sharded_intersect(shard: PlacedShard, rays: Rays, mesh: DeviceMesh,
+def prim_sharded_intersect(ps: PlacedShard, rays: Rays, mesh: DeviceMesh,
                            axis: str = "sp",
                            packet_size: int = 1024) -> Hits:
     """Convenience wrapper: this rank's block of a flat ray batch (padded
     to a multiple of the ring's size and cut by
     dist/sharding.py::shard_rays) against its placed shard."""
-    return make_prim_sharded_intersect(mesh, axis, packet_size)(shard, rays)
+    return make_prim_sharded_intersect(mesh, axis, packet_size)(ps, rays)

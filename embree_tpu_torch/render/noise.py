@@ -4,8 +4,9 @@ Host (numpy) copy of embree_tpu/render/noise.py: a vectorized
 re-implementation of the tutorial noise
 (tutorials/common/tutorial/noise.cpp). The permutation/gradient tables
 come from data extracted out of the reference (noise_tables.npz, this
-package's own copy beside this file, read at first use) so the
-displacement_geometry tutorial produces the same displaced surface.
+package's own copy beside this file, read once at import into `P_TABLE`
+and `G3`) so the displacement_geometry tutorial produces the same
+displaced surface.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ def noise_tables():
     """(P_TABLE (513,) i64, G3 (128, 3) f32), read once."""
     with np.load(TABLES_PATH) as tables:
         return (tables["p"].astype(np.int64), tables["g3"].astype(np.float32))
+
+
+P_TABLE, G3 = noise_tables()    # (513,) i64, (128, 3) f32
 
 
 def _fade(t):
@@ -43,7 +47,7 @@ def noise3(pos: np.ndarray) -> np.ndarray:
     u, v, w = _fade(x), _fade(y), _fade(z)
 
     # index chain exactly as noise.cpp:146-156
-    p, g3 = noise_tables()
+    p, g3 = P_TABLE, G3
     p00 = p[X] + Y
     p000 = p[p00] + Z
     p010 = p[p00 + 1] + Z

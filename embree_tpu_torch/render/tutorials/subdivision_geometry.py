@@ -67,11 +67,14 @@ def build_scene(subdiv_mode=None, subdiv_level=4, comp_level=2,
     return dict(cscene=cs, scene=scene)
 
 
-def render_frame(state, camera: Camera, size):
+def render_frame(state, camera: Camera, size, smooth_normals: bool = True):
     """Reference-exact shading: the subdiv cube (geomID > 0) shades with
     the SMOOTH limit-surface normal Ng = cross(dPdu, dPdv) from
     rtcInterpolate (subdivision_geometry_device.cpp:219-226); the plane
-    keeps its raw triangle normal."""
+    keeps its raw triangle normal. `smooth_normals=False` returns
+    displacement_geometry's frame of the scene (raw normals)."""
+    if not smooth_normals:
+        return dg.render_frame(state, camera, size)
     w, h = size
     cs = state["cscene"]
     vx, vy, vz, p = camera.ispc_camera(w, h, device=cs.device)

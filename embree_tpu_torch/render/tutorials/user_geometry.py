@@ -77,6 +77,13 @@ def make_sphere_intersect(spheres: torch.Tensor):
     return sphere_intersect
 
 
+def sphere_intersect(prim_id, rays: Rays, tfar):
+    """The tutorial's intersect callback over SPHERES, on the rays'
+    device."""
+    spheres = torch.from_numpy(SPHERES).to(rays.org.device)
+    return make_sphere_intersect(spheres)(prim_id, rays, tfar)
+
+
 def build_scene(device=None):
     """`device` is a Device; None means the CUDA device."""
     dev = device or Device()

@@ -17,7 +17,8 @@ accel (obj_loader.cpp:528, tutorial.cpp:1104) at `--subdLvl` /
 A frame is one coherent batch traced in Morton pixel order (the
 compressed kernel for the subdivision surfaces, the packet kernel for
 triangles), the smooth-normal pass, the shading, and one unsort of the
-RGB image. `-i` takes `.obj`, `.xml` (render/xmlloader.py), `.scn`
+RGB image; `render` is the geometric-normal frame without the smooth
+pass. `-i` takes `.obj`, `.xml` (render/xmlloader.py), `.scn`
 (render/coronaloader.py) and `.ply` (render/plyloader.py) scenes; only
 an OBJ's faces become subdivision surfaces under `--compress.*`.
 """
@@ -143,6 +144,23 @@ def _trace(cscene, materials, geom_mat, textures, kd_tex, tri_uv, prim_base,
     return kd, valid, d, hits.geom_id, hits.prim_id, hits.u, hits.v, hits.ng
 
 
+def render(cscene, materials, geom_mat, textures, kd_tex, tri_uv, prim_base,
+           cam_vx, cam_vy, cam_vz, cam_p, perm=None, inv=None,
+           *, width: int, height: int):
+    """One-shot geometric-normal frame (no smooth-normal pass), (H, W, 3)
+    f32 on the scene's device — the fast path used by viewer_anim's
+    per-frame loop. The rays are traced in the order of `perm` (image-row
+    order without it); given `inv` as well, the shaded image is unsorted
+    with it."""
+    kd, valid, d, _gid, _prim, _u, _v, ng = _trace(
+        cscene, materials, geom_mat, textures, kd_tex, tri_uv, prim_base,
+        cam_vx, cam_vy, cam_vz, cam_p, perm, width=width, height=height)
+    img = _shade(kd, valid, d, ng)
+    if perm is not None and inv is not None:
+        img = img[inv]
+    return img.reshape(height, width, 3)
+
+
 def _shade(kd, valid, d, ns):
     """color = Kd * dot(-dir, face_forward(normalize(Ns))) —
     viewer_device.cpp:241-244,304. Returns flat (R, 3)."""
@@ -167,11 +185,12 @@ def shade_normals(scene, valid, gid, prim, u, v, ng):
     return ng
 
 
-def render_frame(state, camera: Camera, size):
+def render_frame(state, camera: Camera, size, smooth_normals: bool = True):
     """Reference viewer shading: g_use_smooth_normals defaults TRUE in
     the fork (viewer_device.cpp:132) — Ns from rtcInterpolate at every
     hit (:284-295), which for subdiv geometry is the limit-surface normal
     (essential for compressed leaves, whose raw Ng is the dummy (1,0,0)).
+    `smooth_normals=False` shades with the geometric normal, as `render`.
 
     The whole frame runs in Morton ray order; only the final RGB image is
     unsorted."""
@@ -183,7 +202,8 @@ def render_frame(state, camera: Camera, size):
         cs, state["materials"], state["geom_mat"], state["textures"],
         state["kd_tex"], state["tri_uv"], state["prim_base"], vx, vy, vz, p,
         perm, width=w, height=h)
-    ng = shade_normals(state["scene"], valid, gid, prim, u, v, ng)
+    if smooth_normals:
+        ng = shade_normals(state["scene"], valid, gid, prim, u, v, ng)
     img = _shade(kd, valid, d, ng)[inv].reshape(h, w, 3)
     return img, w * h
 

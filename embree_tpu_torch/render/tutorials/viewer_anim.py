@@ -6,8 +6,8 @@ vertices are linearly interpolated between two keyframes each frame
 (interpolateVertices :151-178, updateVertexData :187-221), geometry is
 re-committed at RTC_BUILD_QUALITY_LOW (:48, :121; it commits the binned
 SAH, as in the JAX package), and the frame rendered with the viewer's
-geometric-normal shading (viewer.py's `_trace` and `_shade`: one
-coherent batch in image-row order through the packet kernel B2).
+geometric-normal shading (viewer.py's `render`: one coherent batch in
+image-row order through the packet kernel B2).
 Keyframes are given as repeated `-i` OBJ files; with a single input a
 second keyframe is synthesized by a sinusoidal deformation so the demo
 is self-contained. The frame counter lives in the state.
@@ -29,7 +29,7 @@ from ..materials import make_material_table
 from ..objloader import load_obj
 from ..texture import make_texture_set
 from ..tutorial_app import TutorialApplication
-from .viewer import _shade, _trace
+from .viewer import render
 
 
 def _load_keyframes(paths):
@@ -110,11 +110,10 @@ def render_frame(state, camera: Camera, size):
         state = animate(state, t)
     cs = state["cscene"]
     vx, vy, vz, p = camera.ispc_camera(w, h, device=cs.device)
-    kd, valid, d, _gid, _prim, _u, _v, ng = _trace(
-        cs, state["materials"], state["geom_mat"], state["textures"],
-        state["kd_tex"], state["tri_uv"], state["prim_base"], vx, vy, vz, p,
-        width=w, height=h)
-    return _shade(kd, valid, d, ng).reshape(h, w, 3), w * h
+    img = render(cs, state["materials"], state["geom_mat"],
+                 state["textures"], state["kd_tex"], state["tri_uv"],
+                 state["prim_base"], vx, vy, vz, p, width=w, height=h)
+    return img, w * h
 
 
 def make_app() -> TutorialApplication:

@@ -6,8 +6,9 @@ same scene and shading as `viewer` (geometric normals), but the rays go
 through the large ray-stream entry (`rtcIntersect1M`, :200-260
 renderTileStandardStream) instead of per-pixel rtcIntersect1. Here the
 whole frame is one flat stream in image-row order, traced as one batch
-(`rtcore.rtcIntersect1M`, no coherent hint: B2, or B1 for a stream of at
-least ROWTRACE_MIN_RAYS rays on a scene with a treelet scene).
+(`scene_intersect` on the committed scene, as `rtcore.rtcIntersect1M`
+does; no coherent hint: B2, or B1 for a stream of at least
+ROWTRACE_MIN_RAYS rays on a scene with a treelet scene).
 
     python -m embree_tpu_torch.render.tutorials.viewer_stream \\
         -i scene.obj --size 512 512 -o vs.ppm --benchmark 1 3
@@ -21,23 +22,23 @@ import torch
 
 from ...core.math import dot, normalize
 from ...core.rayhit import Rays
-from ...rtcore import rtcIntersect1M
+from ...scene.scene import scene_intersect
 from ..camera import Camera, pixel_coords
 from ..texture import sample_texture
 from ..tutorial_app import TutorialApplication
 from .viewer import build_scene
 
 
-def render(scene, materials, geom_mat, textures, kd_tex, tri_uv, prim_base,
+def render(cscene, materials, geom_mat, textures, kd_tex, tri_uv, prim_base,
            cam_vx, cam_vy, cam_vz, cam_p, *, width: int, height: int):
-    """The (height, width, 3) f32 image of `scene` (a committed Scene)."""
+    """The (height, width, 3) f32 image of `cscene` (a CommittedScene)."""
     dev = cam_vx.device
     x, y = pixel_coords(width, height, device=dev)
     d = normalize(x[..., None] * cam_vx + y[..., None] * cam_vy + cam_vz)
     org = cam_p.expand(d.shape).contiguous()
     n = width * height
     # one flat ray stream for the frame (the 1M entry point)
-    hits = rtcIntersect1M(scene, Rays(
+    hits = scene_intersect(cscene, Rays(
         org, d, torch.zeros(n, dtype=torch.float32, device=dev),
         torch.full((n,), math.inf, dtype=torch.float32, device=dev)))
 
@@ -65,7 +66,7 @@ def render_frame(state, camera: Camera, size):
     w, h = size
     dev = state["cscene"].device
     vx, vy, vz, p = camera.ispc_camera(w, h, device=dev)
-    img = render(state["scene"], state["materials"], state["geom_mat"],
+    img = render(state["cscene"], state["materials"], state["geom_mat"],
                  state["textures"], state["kd_tex"], state["tri_uv"],
                  state["prim_base"], vx, vy, vz, p, width=w, height=h)
     return img, w * h

@@ -53,11 +53,12 @@ def _upload(cps, radii, device):
                  .to(device) for a in (cps, radii))
 
 
-def make_ribbon_intersector(cps, radii, K: int, device):
+def make_ribbon_intersector(cps, radii, prim_ids, K: int = 8, *, device):
     """intersect_fn(curve_id, rays, tfar) -> (ok, t, u, v, ng): the flat
     ribbon test per sub-segment. cps (M, 4, 3) / radii (M, 4) are the
-    cluster's ROTATED numpy arrays; rays arrive rotated; ng returns in
-    the rotated frame."""
+    cluster's ROTATED numpy arrays, uploaded to `device`; rays arrive
+    rotated; ng returns in the rotated frame. `prim_ids` (the cluster's
+    curves) is not read, as in the JAX package."""
     CP, RA = _upload(cps, radii, device)
 
     def intersect_fn(cid, rays, tfar):
@@ -88,9 +89,11 @@ def make_ribbon_intersector(cps, radii, K: int, device):
     return intersect_fn
 
 
-def make_round_curve_intersector(cps, radii, K: int, device):
+def make_round_curve_intersector(cps, radii, prim_ids, K: int = 8, *,
+                                 device):
     """intersect_fn over swept-cone sub-segments (round curves): the
-    line_intersector.h cone test per Bezier sub-segment."""
+    line_intersector.h cone test per Bezier sub-segment; the arguments
+    as `make_ribbon_intersector`'s."""
     CP, RA = _upload(cps, radii, device)
 
     def intersect_fn(cid, rays, tfar):
@@ -125,8 +128,8 @@ def _cone_hit(a0, a1, r0, r1, rays, tfar):
     return ok & (th < tfar), th, s.clamp(0.0, 1.0), p - onax
 
 
-def intersect_hair_clusters(clusters, fns, rays: Rays, t_in, prim_of_curve,
-                            with_stats: bool = False):
+def intersect_hair_clusters(clusters, fns, rays: Rays, t_in, geom_id,
+                            prim_of_curve, with_stats: bool = False):
     """Fold the per-cluster rotated BVH walks, min-combined against t_in:
     flat (t, u, v, ng, prim, hit_mask), and the summed pops with
     `with_stats`. clusters: [HairCluster] (build/hair.py); fns: one leaf
@@ -146,7 +149,8 @@ def intersect_hair_clusters(clusters, fns, rays: Rays, t_in, prim_of_curve,
     for cl, fn in zip(clusters, fns):
         rrays = Rays(rows_times(org, cl.rot), rows_times(d, cl.rot), tn, t)
         res = intersect_user(
-            UserAccel(cl.bvh.to_device(dev), -1, int(cl.members.shape[0])),
+            UserAccel(cl.bvh.to_device(dev), geom_id,
+                      int(cl.members.shape[0])),
             fn, rrays, t, with_stats=with_stats)
         tc, uc, vc, ngc, pc, hitm = res[:6]
         if with_stats:

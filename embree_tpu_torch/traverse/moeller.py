@@ -53,9 +53,10 @@ def intersect_triangle(org, direction, tnear, tfar, v0, v1, v2,
     return valid, t_s * rcp, u_s * rcp, v_s * rcp, ng
 
 
-def triangle_uv_and_point(u, v, v0, v1, v2):
+def triangle_uv_and_point(org, direction, t, u, v, v0, v1, v2):
     """The hit point re-evaluated from barycentrics (the diff pass's
-    recompute-from-primID trick, SURVEY.md section 7.6)."""
+    recompute-from-primID trick, SURVEY.md section 7.6); `org`,
+    `direction` and `t` are not read, as in the JAX package."""
     return (v0 * (1.0 - u - v)[..., None] + v1 * u[..., None]
             + v2 * v[..., None])
 

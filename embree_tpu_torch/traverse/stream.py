@@ -43,6 +43,12 @@ def _sort_with_rays(keys: torch.Tensor, rays: Rays):
                 rays.tnear.reshape(-1)[perm], rays.tfar.reshape(-1)[perm]), perm
 
 
+def sort_rays(rays: Rays, world_lower, world_upper):
+    """Returns (sorted_rays, inverse_permutation)."""
+    srays, _perm, inv = sort_rays_perm(rays, world_lower, world_upper)
+    return srays, inv
+
+
 def sort_rays_perm(rays: Rays, world_lower, world_upper):
     """Returns (sorted_rays, perm, inv); `perm` lets callers co-sort
     per-ray payloads, `inv` restores the original order by a gather
@@ -71,3 +77,11 @@ def unsort_by_perm(perm: torch.Tensor, *arrays: torch.Tensor):
         o[perm] = a
         out.append(o)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def unsort_one(perm: torch.Tensor, x: torch.Tensor):
+    return unsort_by_perm(perm, x)
+
+
+def unsort(x, inv):
+    return x[inv]

@@ -57,6 +57,27 @@ def quad_sphere(center, radius: float, n: int):
     return verts.astype(np.float32), np.asarray(quads, np.int32)
 
 
+def triangle_plane(p0, dx, dy, n: int):
+    """Regular grid plane with 2*n*n triangles (createTrianglePlane)."""
+    p0 = np.asarray(p0, np.float32)
+    dx = np.asarray(dx, np.float32)
+    dy = np.asarray(dy, np.float32)
+    u = np.linspace(0, 1, n + 1)
+    v = np.linspace(0, 1, n + 1)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    verts = p0 + uu[..., None] * dx + vv[..., None] * dy
+    verts = verts.reshape(-1, 3).astype(np.float32)
+    idx = np.arange((n + 1) * (n + 1)).reshape(n + 1, n + 1)
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            a, b, c, d = (idx[i, j], idx[i, j + 1], idx[i + 1, j],
+                          idx[i + 1, j + 1])
+            tris.append([a, b, c])
+            tris.append([b, d, c])
+    return verts, np.asarray(tris, np.int32)
+
+
 def random_triangles(rng: np.random.Generator, n: int, extent: float = 10.0,
                      size: float = 0.5):
     """Random triangle soup for stress/overlap tests (verify.cpp:1093)."""

@@ -6,7 +6,10 @@ closest hit, `_occl_kernel` for occlusion) run in interpret mode
 interpret-mode traces costs about half a minute, so each runs once, in a
 module fixture, and every assertion reads that result; the port traces
 the reference's own tiles, carried over by `convert.py`, as well as the
-tiles it builds itself.
+tiles it builds itself. This file traces `box` mode and occlusion;
+test_torch_cbvh_interpret_leaf.py and test_torch_cbvh_interpret_grid.py
+collect the same four closest-hit tests with a `traced` fixture of
+their own mode (no port test file holds more than five tests).
 
 Tolerances as in tests/test_torch_cbvh.py: valid and geom_id equal, t
 1e-5 absolute, u and v 1e-4 absolute except in `box` mode, prim_id and uv
@@ -63,11 +66,9 @@ def converted_accel(ref_accel):
     return compressed_accel_from_reference(arrays, "cpu")
 
 
-@pytest.fixture(scope="module", params=["box", "leaf", "grid"])
-def traced(request):
+def trace(mode):
     """One interpret-mode trace of the reference's closest-hit kernel and
     the port's answers on the same rays."""
-    mode = request.param
     org, d = rays_np()
     rcs = ref_scene(mode).committed
     assert rcs.compressed_pallas is not None
@@ -80,6 +81,11 @@ def traced(request):
     st = ck.intersect_compressed_kernel(pc, rays)
     got = cbvh.compressed_hits(accel, rays, st)
     return mode, ref, got, st, pc, rays
+
+
+@pytest.fixture(scope="module", params=["box"])
+def traced(request):
+    return trace(request.param)
 
 
 def test_valid_geom_and_t_match_the_pallas_kernel(traced):

@@ -12,23 +12,20 @@ paths (tests/test_hair.py:161), on all but at most 2 % of the hits
 the port rounds every product, and the cone quadratic B*B - 4*A*C
 cancels most digits on thin cones seen at a grazing angle (observed: one
 ray of 68 at 1.5e-4); prim equal where t agrees; node pops equal; u
-within U_ATOL."""
+within 1e-3. The tessellation and the clustering are in
+test_torch_curves_host.py, the segment soup and the cluster walk in
+test_torch_curves_walks.py; both use the helpers below."""
 import numpy as np
 import pytest
 import torch
 
 import embree_tpu as et
 import embree_tpu_torch as ett
-from embree_tpu.build import hair as ref_hair
 from embree_tpu.core.rayhit import Rays as RefRays
-from embree_tpu.scene import curves as ref_curves
-from embree_tpu.traverse import hair as ref_thair
 from embree_tpu.traverse import mb as ref_mb
-from embree_tpu.traverse import user as ref_user
 from embree_tpu_torch.build import hair as port_hair
 from embree_tpu_torch.convert import mb_curves_from_reference
 from embree_tpu_torch.core.rayhit import Rays
-from embree_tpu_torch.scene import curves as port_curves
 from embree_tpu_torch.traverse import hair as port_thair
 from embree_tpu_torch.traverse import mb as port_mb
 from embree_tpu_torch.traverse import user as port_user
@@ -38,9 +35,6 @@ from test_torch_build import reference_native  # noqa: F401,E402
 
 CFG = "ignore_config_files=1"
 T_RTOL = 1e-4
-# u = u0 + du * (alpha + beta * t) / aa carries t's error times the ray's
-# slope along the segment (observed 1.7e-4)
-U_ATOL = 1e-3
 MB_FIELDS = ("lower_ts", "upper_ts", "p0_ts", "p1_ts", "geom_id", "prim_id",
              "u0", "du")
 
@@ -77,46 +71,6 @@ def test_hair_ball_fixture_is_the_tests_hair_ball():
         b = hair_ball(np.random.default_rng(3), 40, diagonal=diagonal)
         _same(a[0], b[0])
         _same(a[1], b[1])
-
-
-@pytest.mark.parametrize("kind", ["LineSegments", "BezierCurves",
-                                  "BSplineCurves"])
-def test_tessellation_byte_equal(kind):
-    rng = np.random.default_rng(11)
-    verts = rng.normal(size=(40, 4)).astype(np.float32)
-    verts[:, 3] = np.abs(verts[:, 3]) * 0.1
-    idx = np.arange(0, 36, 4, dtype=np.int32)
-    kw = {} if kind == "LineSegments" else {"tessellation_rate": 5}
-    r = getattr(ref_curves, kind)(verts, idx, **kw)
-    p = getattr(port_curves, kind)(verts, idx, **kw)
-    for a, b in zip(r.to_segments(), p.to_segments()):
-        _same(a, b)
-    if kind != "LineSegments":
-        for a, b in zip(r.to_bezier(), p.to_bezier()):
-            _same(a, b)
-    p0, p1 = r.to_segments()[:2]
-    for a, b in zip(ref_curves.segment_bounds(p0, p1),
-                    port_curves.segment_bounds(p0, p1)):
-        _same(a, b)
-
-
-@pytest.mark.parametrize("builder", ["auto", "default"])
-def test_hair_clusters_byte_equal(builder):
-    for diagonal in (False, True):
-        verts, idx = hair_ball(np.random.default_rng(5), 150,
-                               diagonal=diagonal)
-        cp3, rad = _cps(verts, idx)
-        ref = ref_hair.build_hair_clusters(cp3, rad, builder=builder)
-        port = port_hair.build_hair_clusters(cp3, rad, builder=builder)
-        assert len(ref) == len(port) == (1 if diagonal else 13)
-        for a, b in zip(ref, port):
-            _same(a.rot, b.rot)
-            _same(a.members, b.members)
-            for k in ("lower", "upper", "child", "count", "prim_order"):
-                _same(getattr(a.bvh, k), getattr(b.bvh, k))
-        clusters = port_hair.cluster_curves(cp3)
-        assert [m.tolist() for _r, m in clusters] == [
-            c.members.tolist() for c in port]
 
 
 def _mb_curve_geoms(module):
@@ -181,101 +135,6 @@ def _close(t_ref, t_port, valid_ref, valid_port):
     return m
 
 
-def test_intersect_user_segment_soup_matches_reference():
-    """The segment soup of a hair ball (swept cones with caps) walked by
-    both packages' intersect_user: same hits, t, prims and pops."""
-    rng = np.random.default_rng(31)
-    verts, idx = hair_ball(rng, 30)
-    g = port_curves.BezierCurves(verts, idx, tessellation_rate=4)
-    p0, p1, prim, u0, du = g.to_segments()
-    lo, hi = port_curves.segment_bounds(p0, p1)
-    from embree_tpu.build.sah import BuildSettings, build_sah
-    bvh_np = build_sah(lo, hi, BuildSettings())
-    org, d = _rays_np(rng, 256)
-    # half the rays aimed at segment midpoints
-    k = rng.integers(0, len(p0), 256)
-    tgt = 0.5 * (p0[k, :3] + p1[k, :3])
-    d[::2] = (tgt - org)[::2]
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tn = np.zeros(256, np.float32)
-    tf = np.full(256, np.inf, np.float32)
-    tf[::5] = 2.0
-    fn_r, _ = ref_curves.make_segment_intersector(p0, p1, prim, u0, du)
-    ref = ref_user.intersect_user(
-        ref_user.UserAccel(bvh_np.to_device(), 0, len(p0)), fn_r,
-        RefRays(org, d, tn, tf), tf, with_stats=True)
-    fn_p, _ = port_curves.make_segment_intersector(p0, p1, prim, u0, du,
-                                                   "cpu")
-    from embree_tpu_torch.build.bvh import BVHArraysNP
-    port_bvh = BVHArraysNP(*(np.asarray(a) for a in bvh_np)).to_device("cpu")
-    t = torch.from_numpy
-    got = port_user.intersect_user(
-        port_user.UserAccel(port_bvh, 0, len(p0)), fn_p,
-        Rays(t(org), t(d), t(tn), t(tf)), t(tf), with_stats=True)
-    m = _close(np.asarray(ref[0]), got[0].numpy(), np.asarray(ref[5]),
-               got[5].numpy())
-    assert m.sum() > 40
-    np.testing.assert_array_equal(np.asarray(ref[4])[m], got[4].numpy()[m])
-    np.testing.assert_allclose(got[1].numpy()[m], np.asarray(ref[1])[m],
-                               atol=U_ATOL)
-    assert int(ref[6]) == got[6]
-
-
-def _cluster_walks(flat, rng, n_rays=192):
-    # a diagonal hair ball and a stray: two clusters (the JAX package's
-    # walk compiles a while loop a cluster, ~2 s each)
-    verts, idx = hair_ball(rng, 30, diagonal=True)
-    sv, si = hair_ball(rng, 1)
-    verts = np.concatenate([verts, sv])
-    idx = np.concatenate([idx, si + 120]).astype(np.int32)
-    cp3, rad = _cps(verts, idx)
-    clusters_r = ref_hair.build_hair_clusters(cp3, rad)
-    clusters_p = port_hair.build_hair_clusters(cp3, rad)
-    assert len(clusters_r) > 1
-    org, d = _rays_np(rng, n_rays)
-    tgt = cp3[rng.integers(0, len(cp3), n_rays), 1]
-    d[::2] = (tgt - org)[::2]
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tn = np.zeros(n_rays, np.float32)
-    tf = np.full(n_rays, np.inf, np.float32)
-    mk_r = (ref_thair.make_ribbon_intersector if flat
-            else ref_thair.make_round_curve_intersector)
-    mk_p = (port_thair.make_ribbon_intersector if flat
-            else port_thair.make_round_curve_intersector)
-    fns_r = [mk_r(cp3[c.members] @ c.rot, rad[c.members], c.members, K=4)
-             for c in clusters_r]
-    fns_p = [mk_p(cp3[c.members] @ c.rot, rad[c.members], 4, "cpu")
-             for c in clusters_p]
-    poc = np.arange(len(idx), dtype=np.int32)
-    ref = ref_thair.intersect_hair_clusters(
-        clusters_r, fns_r, RefRays(org, d, tn, tf), tf, 0, poc,
-        with_stats=True)
-    t = torch.from_numpy
-    got = port_thair.intersect_hair_clusters(
-        clusters_p, fns_p, Rays(t(org), t(d), t(tn), t(tf)), t(tf), poc,
-        with_stats=True)
-    return ref, got
-
-
-@pytest.mark.parametrize("flat", [False, True], ids=["round", "ribbon"])
-def test_cluster_walk_matches_reference(flat):
-    """traverse/hair.py's cluster fold (curve BVHs, K = 4 sub-segment
-    leaves) against the JAX package's XLA cluster walk on the same
-    clusters: same hits, t, prims and pops."""
-    ref, got = _cluster_walks(flat, np.random.default_rng(41 + flat))
-    m = _close(np.asarray(ref[0]), got[0].numpy(), np.asarray(ref[5]),
-               got[5].numpy())
-    assert m.sum() > 30
-    np.testing.assert_array_equal(np.asarray(ref[4])[m], got[4].numpy()[m])
-    np.testing.assert_allclose(got[1].numpy()[m], np.asarray(ref[1])[m],
-                               atol=U_ATOL)
-    ng_r, ng_p = np.asarray(ref[3])[m], got[3].numpy()[m]
-    cos = (ng_r * ng_p).sum(1) / (np.linalg.norm(ng_r, axis=1)
-                                  * np.linalg.norm(ng_p, axis=1))
-    assert cos.min() > 0.999
-    assert int(ref[6]) == got[6]
-
-
 def test_obb_beats_aabb_on_diagonal_hair():
     """The port's form of tests/test_hair.py's: the strand-aligned
     clusters pop at most half the nodes of an axis-aligned build over the
@@ -292,7 +151,8 @@ def test_obb_beats_aabb_on_diagonal_hair():
         total = 0
         for cl in clusters:
             fn = port_thair.make_round_curve_intersector(
-                cp3[cl.members] @ cl.rot, rad[cl.members], 8, "cpu")
+                cp3[cl.members] @ cl.rot, rad[cl.members], cl.members, 8,
+                device="cpu")
             rr = Rays(port_thair.rows_times(rays.org, cl.rot),
                       port_thair.rows_times(rays.dir, cl.rot), rays.tnear,
                       rays.tfar)

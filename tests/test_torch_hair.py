@@ -6,7 +6,12 @@ tests/test_motion_blur.py::test_curve_mb, a mixed scene of triangles and
 hair (the shape of tests/test_mixed_fastpath.py:34-71), filters over hair
 hits, and the hair_geometry and curve_geometry tutorials; each held to
 the JAX package's tolerances (or tighter) and also against the JAX
-package's `scene_intersect(isa="xla")` on the same input.
+package's `scene_intersect(isa="xla")` on the same input. This file holds
+the OBB cases and the filters; the curve types, the whole scenes and the
+tutorials are in test_torch_hair_curves.py, test_torch_hair_scenes.py
+and test_torch_hair_tutorials.py, which use the helpers below (no port
+test file holds more than five tests, so that pytest-xdist's loadfile
+order hands out tests/test_hair.py early).
 
 Against the JAX package: hit masks equal and t within 1e-4 relative on
 every ray, and any hit (`scene_occluded`) equal where it is queried;
@@ -36,8 +41,7 @@ import torch
 
 import embree_tpu as et
 import embree_tpu_torch as ett
-from embree_tpu_torch.render.camera import Camera
-from embree_tpu_torch.verify.fixtures import hair_ball, triangle_sphere
+from embree_tpu_torch.verify.fixtures import hair_ball
 
 CFG = "ignore_config_files=1"
 GRAZING = 0.01
@@ -218,188 +222,16 @@ def test_obb_matches_reference_and_occluded_equals_valid(diagonal_pair,
     assert np.median(cos) > 0.9999
 
 
-def test_ribbon_flat_curves():
-    """FLAT curves use the ribbon leaf: a thick straight curve hit
-    head-on reports t at the curve's axis depth (the ribbon faces the
-    ray) and misses beyond the radius; as the JAX package."""
-    verts = np.array([[0, 0, 0, 0.1], [0, 0.33, 0, 0.1],
-                      [0, 0.66, 0, 0.1], [0, 1, 0, 0.1]], np.float32)
-    idx = np.array([0], np.int32)
-    ref, port = _both(_hair(verts, idx, rate=4, flat=True),
-                      ",hair_accel=obb")
-    org = np.array([[0.05, 0.5, 2.0], [0.3, 0.5, 2.0]], np.float32)
-    d = np.array([[0, 0, -1.0], [0, 0, -1.0]], np.float32)
-    q = _query(ref, port, org, d)
-    h = q["port"]
-    assert h.valid.tolist() == [True, False]
-    assert abs(float(h.t[0]) - 2.0) < 1e-3
-    _agree(q)
-    assert q["port_occ"].tolist() == [True, False]
-
-
 # --- tests/test_curves.py ----------------------------------------------------
-
-def test_line_segments_round():
-    verts = np.array([[0, 0, 0, 0.2], [2, 0, 0, 0.2]], np.float32)
-    idx = np.array([0], np.int32)
-    ref, port = _both(lambda pkg: [pkg.LineSegments(verts, idx)])
-    org = np.array([[1, 0, 5], [1, 0.19, 5], [1, 0.5, 5], [-1, 0, 5]],
-                   np.float32)
-    d = np.array([[0, 0, -1]] * 4, np.float32)
-    q = _query(ref, port, org, d, occluded=True)
-    h = q["port"]
-    assert h.valid.tolist() == [True, True, False, False]
-    assert abs(float(h.t[0]) - 4.8) < 1e-3
-    assert int(h.geom_id[0]) == 0
-    assert abs(float(h.u[0]) - 0.5) < 0.02
-    _agree(q)
-    np.testing.assert_array_equal(q["port_occ"], h.valid.numpy())
-
-
-def test_line_segment_caps():
-    verts = np.array([[0, 0, 0, 0.3], [1, 0, 0, 0.3]], np.float32)
-    idx = np.array([0], np.int32)
-    ref, port = _both(lambda pkg: [pkg.LineSegments(verts, idx)])
-    q = _query(ref, port, np.array([[-2, 0, 0]], np.float32),
-               np.array([[1, 0, 0]], np.float32))
-    assert bool(q["port"].valid[0])
-    assert abs(float(q["port"].t[0]) - 1.7) < 1e-3
-    _agree(q)
-
-
-def test_bezier_hair():
-    """A gently curved, tapering strand (one OBB cluster): rays down its
-    path hit it, u recovers the curve parameter, t = 5 - radius."""
-    cp = np.array([[0, 0, 0, 0.10], [1, 0.5, 0, 0.08],
-                   [2, -0.5, 0, 0.06], [3, 0, 0, 0.04]], np.float32)
-    idx = np.array([0], np.int32)
-    port = ett.Scene(ett.Device(CFG, device="cpu"))
-    port.attach(ett.BezierCurves(cp, idx, tessellation_rate=16))
-    port.commit()
-    n = 32
-    ts = np.linspace(0.05, 0.95, n).astype(np.float32)
-    b = ((1 - ts[:, None]) ** 3 * cp[0] + 3 * (1 - ts[:, None]) ** 2
-         * ts[:, None] * cp[1] + 3 * (1 - ts[:, None]) * ts[:, None] ** 2
-         * cp[2] + ts[:, None] ** 3 * cp[3])
-    org = np.stack([b[:, 0], b[:, 1], np.full(n, 5.0)], 1).astype(np.float32)
-    d = np.tile(np.array([0, 0, -1.0], np.float32), (n, 1))
-    h = port.intersect(ett.make_rays(org, d, device="cpu"))
-    v = h.valid.numpy()
-    assert v.mean() > 0.95
-    assert (h.geom_id.numpy()[v] == 0).all()
-    assert (h.prim_id.numpy()[v] == 0).all()
-    assert np.median(np.abs(h.u.numpy()[v] - ts[v])) < 0.08
-    r = (1 - ts) ** 3 * 0.10 + 3 * (1 - ts) ** 2 * ts * 0.08 \
-        + 3 * (1 - ts) * ts ** 2 * 0.06 + ts ** 3 * 0.04
-    np.testing.assert_allclose(h.t.numpy()[v], (5 - r)[v], atol=0.03)
-    _agree(_query(*_both(_hair(cp, idx, rate=4)), org, d))
 
 
 # --- tests/test_lazy_curve_demos.py -----------------------------------------
 
-def test_bspline_segments_convex_hull():
-    from embree_tpu_torch.render.tutorials.curve_geometry import (
-        HAIR_INDICES, HAIR_VERTICES)
-    g = ett.BSplineCurves(HAIR_VERTICES, HAIR_INDICES, tessellation_rate=8)
-    p0, p1, prim, u0, du = g.to_segments()
-    lo = HAIR_VERTICES[:, :3].min(0) - 1e-5
-    hi = HAIR_VERTICES[:, :3].max(0) + 1e-5
-    for p in (p0, p1):
-        assert (p[:, :3] >= lo).all() and (p[:, :3] <= hi).all()
-    assert prim.shape[0] == 6 * 8
-    np.testing.assert_allclose(p0[0], p1[-1], atol=1e-5)
-
-
-@pytest.mark.parametrize("accel", ["obb", "segment"])
-def test_bspline_curve_hit(accel):
-    cp = np.asarray([[0, -3, 0, 0.3], [0, -1, 0, 0.3],
-                     [0, 1, 0, 0.3], [0, 3, 0, 0.3]], np.float32)
-    idx = np.zeros(1, np.int32)
-    ref, port = _both(lambda pkg: [pkg.BSplineCurves(
-        cp, idx, tessellation_rate=4)], f",hair_accel={accel}")
-    q = _query(ref, port, np.asarray([[0, 0, -5]], np.float32),
-               np.asarray([[0, 0, 1]], np.float32), occluded=True)
-    assert bool(q["port"].valid[0])
-    assert abs(float(q["port"].t[0]) - 4.7) < 0.05
-    _agree(q)
-    assert q["port_occ"].tolist() == [True]
-
-
-def test_curve_demo_renders():
-    from embree_tpu_torch.render.tutorials.curve_geometry import (
-        build_scene, render_frame)
-    st = build_scene(ett.Device(CFG, device="cpu"))
-    img, n = render_frame(st, Camera(from_=(2, 2.5, -6), to=(0, 0, 0)),
-                          (96, 64))
-    img = img.numpy()
-    assert img.shape == (64, 96, 3) and n == 96 * 64
-    assert img.max() > 0.3 and np.isfinite(img).all()
-
 
 # --- tests/test_motion_blur.py::test_curve_mb -----------------------------
 
-def test_curve_mb():
-    """A straight thick curve translating over time: hits move with the
-    ray's time; the JAX package agrees on the ray that hits at each
-    time, queried alone; occlusion over MB curves raises."""
-    def curve_at(zoff):
-        return np.array([[0, -1, zoff, 0.2], [0, -0.4, zoff, 0.2],
-                         [0, 0.4, zoff, 0.2], [0, 1, zoff, 0.2]], np.float32)
-
-    ref, port = _both(lambda pkg: [pkg.BezierCurvesMB(
-        indices=np.array([0], np.int32),
-        timesteps=[curve_at(0.0), curve_at(2.0)], tessellation_rate=8)])
-    assert port.committed.mb_curves is not None
-    org = np.array([[3, 0, 0], [3, 0, 2], [3, 0, 1]], np.float32)
-    d = np.array([[-1, 0, 0]] * 3, np.float32)
-    got = {}
-    for tm in (0.0, 1.0, 0.5):
-        q = _query(ref, port, org, d, time=tm)
-        got[tm] = q["port"]
-        # the ray that hits at this time, alone: the JAX package's leaf
-        # sums the cone's axis over the batch (ROADMAP.md C)
-        i = {0.0: 0, 1.0: 1, 0.5: 2}[tm]
-        qi = _query(ref, port, org[i:i + 1], d[i:i + 1], time=tm)
-        _agree(qi)
-        assert torch.equal(qi["port"].t, got[tm].t[i:i + 1])
-    h0, h1, hm = got[0.0], got[1.0], got[0.5]
-    assert bool(h0.valid[0]) and not bool(h0.valid[1])
-    assert bool(h1.valid[1]) and not bool(h1.valid[0])
-    assert bool(hm.valid[2])
-    assert abs(float(h0.t[0]) - 2.8) < 1e-2
-    assert abs(float(hm.t[2]) - 2.8) < 1e-2
-    # per-ray times in one request
-    hr = port.intersect(ett.make_rays(org, d, device="cpu"),
-                        time=torch.tensor([0.0, 1.0, 0.5]))
-    assert hr.valid.tolist() == [True, True, True]
-    with pytest.raises(ett.RaytracerError,
-                       match="not ported yet: occluded over motion-blur"):
-        port.occluded(ett.make_rays(org, d, device="cpu"))
-
 
 # --- a mixed scene (tests/test_mixed_fastpath.py:34-71) ---------------------
-
-def test_triangles_plus_hair(rng):
-    """A sphere of triangles (kernel B2's plain version) and diagonal
-    hair (B3's) in one scene, against the JAX package's XLA fold: the
-    same accel type wins per ray; occlusion equals the hit mask."""
-    verts, idx = triangle_sphere((0, 0, 0), 1.6, 16)
-    hv, hi = hair_ball(rng, 40, diagonal=True)
-    hv[:, 3] = 0.03
-    ref, port = _both(lambda pkg: [pkg.TriangleMesh(verts, idx),
-                                   pkg.BezierCurves(hv, hi,
-                                                    tessellation_rate=4)])
-    assert port.committed.hairs and port.committed.tris.num_prims
-    org, d = _rays_np(rng, 1024, aim=hv[hi + 1, :3])
-    q = _query(ref, port, org, d, occluded=True)
-    ok = _agree(q)
-    assert (q["port"].geom_id.numpy()[ok] == 1).sum() > 30
-    assert (q["port"].geom_id.numpy()[ok] == 0).sum() > 30
-    # with tfar = inf any hit is a closest hit found, triangles and hair
-    np.testing.assert_array_equal(q["port_occ"], q["port"].valid.numpy())
-    # a hair hit carries no triangle slot
-    hair = q["port"].geom_id == 1
-    assert (q["port"].gprim[hair] == -1).all()
 
 
 # --- filters over hair hits -----------------------------------------------
@@ -443,48 +275,3 @@ def test_filter_restart_over_hair_hits(diagonal_pair, flat):
 
 
 # --- the tutorials ---------------------------------------------------------
-
-def _tutorial_images(name, size=(64, 48)):
-    from embree_tpu.render.camera import Camera as RefCamera
-    import importlib
-    ref_mod = importlib.import_module(
-        f"embree_tpu.render.tutorials.{name}")
-    port_mod = importlib.import_module(
-        f"embree_tpu_torch.render.tutorials.{name}")
-    app = port_mod.make_app()
-    c = app.camera
-    ref_img, _ = ref_mod.render_frame(
-        ref_mod.build_scene(),
-        RefCamera(from_=c.from_, to=c.to, up=c.up, fov=c.fov), size)
-    port_img, _ = port_mod.render_frame(
-        port_mod.build_scene(ett.Device(CFG, device="cpu")), c, size)
-    return np.asarray(ref_img), port_img.numpy()
-
-
-@pytest.mark.parametrize("name,budget", [("curve_geometry", 0.0),
-                                         ("hair_geometry", 0.02)])
-def test_tutorial_matches_reference(name, budget):
-    ref, port = _tutorial_images(name)
-    assert port.shape == ref.shape == (48, 64, 3)
-    diff = np.abs(ref - port).max(-1)
-    assert np.isfinite(port).all()
-    assert (diff > 1.5 / 255).mean() <= budget, (diff > 1.5 / 255).mean()
-    assert (port.max(-1) > 0).mean() > 0.3
-
-
-@pytest.mark.parametrize("name", ["hair_geometry", "curve_geometry"])
-def test_tutorial_cli(name, tmp_path, capsys):
-    import importlib
-    from embree_tpu_torch.render.image import read_ppm
-    mod = importlib.import_module(
-        f"embree_tpu_torch.render.tutorials.{name}")
-    out = tmp_path / f"{name}.ppm"
-    rc = mod.make_app().run(["--size", "32", "24", "-o", str(out),
-                             "--benchmark", "0", "1",
-                             "-rtcore", "device=cpu"])
-    assert rc == 0
-    text = capsys.readouterr().out
-    for key in ("BENCHMARK_RENDER_AVG", "BENCHMARK_RENDER_MRAYPS_AVG"):
-        assert key in text
-    img = read_ppm(str(out))
-    assert img.shape == (24, 32, 3) and img.max() > 0

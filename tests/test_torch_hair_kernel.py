@@ -14,7 +14,10 @@ the rays whose hit masks differ (flips) or whose t lies further apart
 counted together and bounded by 1 % of the rays, the JAX package's own
 bound (tests/test_hair.py:143-166; observed: no flip, one cone ray of
 128 at 5.2e-5), and stay within 1e-3; slot equal on the agreeing hits
-(an equal-t tie would show here; observed none)."""
+(an equal-t tie would show here; observed none). The packer and the
+converter are in test_torch_hair_kernel_pack.py, the plain version's
+own guarantees in test_torch_hair_kernel_walk.py; both use the helpers
+below."""
 import math
 
 import jax.numpy as jnp
@@ -22,10 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-import embree_tpu as et
 from embree_tpu.traverse import pallas_hair as ref_ph
-from embree_tpu_torch.build.hair import cluster_curves
-from embree_tpu_torch.convert import hair_clusters_from_reference
 from embree_tpu_torch.core.math import rows_times
 from embree_tpu_torch.core.rayhit import Rays
 from embree_tpu_torch.scene import scene as port_scene
@@ -71,67 +71,6 @@ def _port_rays(org, d, tfar=None):
           else torch.from_numpy(tfar))
     return Rays(torch.from_numpy(org), torch.from_numpy(d), torch.zeros(n),
                 tf)
-
-
-@pytest.mark.parametrize("builder", ["auto", "default"])
-def test_pack_byte_equal(builder):
-    cp3, rad = _curves(40)
-    for K in (3, 8):
-        ref = ref_ph.pack_hair_cluster(cp3, rad, K=K, flat=False,
-                                       builder=builder)
-        nodes, sdata, seg, payload, _c, _n = hk.pack_hair_arrays(
-            cp3, rad, K, builder)
-        for a, b in ((ref.nodes, nodes), (ref.sdata, sdata), (ref.seg, seg),
-                     (ref.payload, payload)):
-            a = np.asarray(a)
-            assert a.dtype == b.dtype and a.shape == b.shape
-            assert a.tobytes() == b.tobytes()
-        assert ref.num_segments == seg.shape[0] == 40 * K
-        # segment rows: 16 a row, zero pads after the last segment, and
-        # one zero row
-        assert sdata.shape == (-(-40 * K // 16) + 1, 128)
-        assert not sdata.reshape(-1, 8)[40 * K:].any()
-
-
-@pytest.fixture(scope="module")
-def scenes():
-    """The same hair ball committed by both packages, round and flat."""
-    out = {}
-    verts, idx = hair_ball(np.random.default_rng(9), 60)
-    for flat in (False, True):
-        ref = et.Scene(et.Device(CFG))
-        ref.attach(et.BezierCurves(verts, idx, tessellation_rate=5,
-                                   flat=flat))
-        from embree_tpu_torch import BezierCurves, Device, Scene
-        port = Scene(Device(CFG, device="cpu"))
-        port.attach(BezierCurves(verts, idx, tessellation_rate=5, flat=flat))
-        out[flat] = (ref.commit(), port.commit())
-    return out
-
-
-@pytest.mark.parametrize("flat", [False, True], ids=["round", "flat"])
-def test_converter_round_trip(scenes, flat):
-    """hair_clusters_from_reference of the JAX package's committed
-    clusters equals the port's own commit, tensor for tensor."""
-    ref, port = scenes[flat]
-    arrays = []
-    for (gid, _fn), hp in zip(ref.hairs, ref.hair_pallas):
-        arrays.append(dict(gid=gid, nodes=np.asarray(hp.nodes),
-                           sdata=np.asarray(hp.sdata),
-                           seg=np.asarray(hp.seg),
-                           payload=np.asarray(hp.payload), K=hp.K,
-                           flat=hp.flat))
-    assert len(arrays) == len(port.hairs)
-    for a, h in zip(arrays, port.hairs):
-        a["rot"] = h.rot
-        a["members"] = h.members.numpy()
-    conv = hair_clusters_from_reference(arrays, "cpu")
-    for c, h in zip(conv, port.hairs):
-        assert c.gid == h.gid and np.array_equal(c.rot, h.rot)
-        assert torch.equal(c.members, h.members)
-        for a, b in zip(c.packed, h.packed):
-            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
-                    else a == b)
 
 
 @pytest.fixture(scope="module")
@@ -198,96 +137,6 @@ def test_any_hit_equals_closest_hit_found(interpret_runs, flat):
     assert st_c["leaf_visits"] > 0 and st_c["nodes_touched"] > 0
 
 
-def test_pad_segments_are_never_taken():
-    """Poison every pad slot of the segment rows (the zero segments after
-    the last one and the trailing zero row) with a fat segment across the
-    whole scene: no answer or counter changes, because a leaf's count
-    bounds its tests."""
-    cp3, rad = _curves(5)
-    for flat in (False, True):
-        ph = hk.pack_hair_cluster(cp3, rad, 3, flat, "cpu")
-        S = ph.num_segments
-        assert S % hk.NS_PER_ROW != 0
-        rng = np.random.default_rng(3)
-        org, d = _aimed_rays(rng, 512, ph.seg.numpy())
-        rays = _port_rays(org, d)
-        clean = hk.hair_plain(ph, rays, stats=True)
-        clean_o = hk.hair_plain(ph, rays, occluded=True, stats=True)
-        sd = ph.sdata.clone().view(-1, hk.SEG_FLOATS)
-        sd[S:] = torch.tensor([-9.0, 0, 0, 9.0, 0, 0, 8.0, 8.0])
-        bad = ph._replace(sdata=sd.view(-1, 128))
-        dirty = hk.hair_plain(bad, rays, stats=True)
-        dirty_o = hk.hair_plain(bad, rays, occluded=True, stats=True)
-        for a, b in ((clean, dirty), (clean_o, dirty_o)):
-            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-            assert a[2] == b[2]
-        assert (clean[1] >= 0).any()
-
-
-def test_earlier_segment_keeps_an_equal_t():
-    """Two identical curves: every sub-segment twice at the same place.
-    The leaf accepts `th < t` strictly, so a ray keeps the first of the
-    two equal candidates it meets (the triangle leaf's `<=` would keep
-    the second)."""
-    cp3, rad = _curves(1, seed=4)
-    cp3 = np.concatenate([cp3, cp3])
-    rad = np.concatenate([rad, rad])
-    for flat in (False, True):
-        ph = hk.pack_hair_cluster(cp3, rad, 2, flat, "cpu")
-        rng = np.random.default_rng(8)
-        org, d = _aimed_rays(rng, 256, ph.seg.numpy())
-        t, slot = hk.hair_plain(ph, _port_rays(org, d))
-        hit = slot >= 0
-        assert hit.sum() > 20
-        pay = ph.payload[slot[hit].long()]
-        twin = torch.where(pay >= 2, pay - 2, pay + 2)     # the other curve
-        twin_slot = torch.nonzero(ph.payload[None] == twin[:, None])[:, 1]
-        seg = ph.seg
-        assert torch.equal(seg[slot[hit].long()], seg[twin_slot])
-        # the slot taken is the one met first, and a leaf meets slots in
-        # order: where both lie in one leaf, the lower slot
-        same_leaf = (slot[hit] // 8) == (twin_slot // 8)
-        assert (slot[hit][same_leaf] < twin_slot[same_leaf]).all()
-
-
-def test_stack_and_inputs_are_checked():
-    cp3, rad = _curves(4)
-    ph = hk.pack_hair_cluster(cp3, rad, 2, False, "cpu")
-    org, d = _aimed_rays(np.random.default_rng(1), 8, ph.seg.numpy())
-    rays = _port_rays(org, d)
-    with pytest.raises(ValueError, match="levels"):
-        hk.hair_trace(ph._replace(depth=65), rays)
-    with pytest.raises(ValueError, match="dtype"):
-        hk.hair_trace(ph, rays._replace(org=rays.org.double()))
-    with pytest.raises(ValueError, match="contiguous"):
-        hk.hair_trace(ph, rays._replace(tfar=rays.tfar[:1].expand(8)))
-    with pytest.raises(ValueError, match="shape"):
-        hk.hair_trace(ph._replace(num_segments=ph.num_segments + 1), rays)
-    # a smaller stack than the tree needs drops pushes, and counts them
-    deep = hk.pack_hair_cluster(*_curves(60), 8, False, "cpu")
-    org, d = _aimed_rays(np.random.default_rng(2), 256, deep.seg.numpy())
-    _t, _s, st = hk.hair_plain(deep, _port_rays(org, d), stats=True,
-                               stack_depth=2)
-    assert st["dropped_pushes"] > 0
-    assert hk.hair_plain(deep, _port_rays(org, d), stats=True)[2][
-        "dropped_pushes"] == 0
-
-
-def test_clusters_are_rotated_frames():
-    """The scene packs every cluster in its own frame: the packed
-    segments rotated back by rot.T are the world tessellation."""
-    verts, idx = hair_ball(np.random.default_rng(12), 30)
-    cps = np.stack([verts[idx + k] for k in range(4)], 1)
-    cp3, rad = cps[:, :, :3], cps[:, :, 3]
-    for rot, mem in cluster_curves(cp3):
-        nodes, sdata, seg, payload, _c, _n = hk.pack_hair_arrays(
-            cp3[mem] @ rot, rad[mem], 3)
-        world = hk._bezier_points_np(cp3[mem], 3)
-        back = seg[:, 0:3] @ rot.T
-        m, k = payload // 3, payload % 3
-        np.testing.assert_allclose(back, world[m, k], atol=1e-5)
-
-
 def _fold_one_cluster_at_a_time(cs, flat, hits, hairs=None):
     """The hair fold as it ran before one launch served every cluster: a
     launch, a finalize and a fold a cluster (`hairs`, by default
@@ -303,84 +152,8 @@ def _fold_one_cluster_at_a_time(cs, flat, hits, hairs=None):
     return hits
 
 
-def _occluded_one_cluster_at_a_time(cs, flat):
-    """(occlusion, clusters entered summed over rays): a ray already
-    occluded enters no further cluster."""
-    occ = torch.zeros(flat.tnear.shape, dtype=torch.bool)
-    entered = 0
-    for h in cs.hairs:
-        entered += int((~(occ | (flat.tfar == -math.inf))).sum())
-        occ = occ | hk.occluded_hair_kernel(
-            h.packed, rows_times(flat.org, h.rot),
-            rows_times(flat.dir, h.rot), flat.tnear,
-            torch.where(occ, -math.inf, flat.tfar))
-    return occ, entered
-
-
 def _bits(a):
     return a.view(torch.int32) if a.dtype == torch.float32 else a
-
-
-@pytest.mark.parametrize("shape", ["fur", "ball"])
-def test_one_launch_equals_the_per_cluster_fold(shape):
-    """A request's hair fold, one launch over every cluster with the rays
-    rotated in the kernel and one finalize, equals the fold one cluster at
-    a time bit for bit (t, u, v, Ng, prim_id, geom_id), from a running t
-    that starts anywhere: on the tutorial's fur at 400 strands (3 round
-    clusters) and a hair ball of 60 flat curves (13 clusters)."""
-    from embree_tpu_torch import BezierCurves, Device, Scene
-    from embree_tpu_torch.render.tutorials import hair_geometry as hg
-    if shape == "fur":
-        verts, idx = hg.make_fur(400)
-        geom, extent = BezierCurves(verts, idx, tessellation_rate=6), 1.5
-    else:
-        verts, idx = hair_ball(np.random.default_rng(21), 60)
-        geom, extent = BezierCurves(verts, idx, tessellation_rate=4,
-                                    flat=True), 2.5
-    sc = Scene(Device(CFG, device="cpu"))
-    sc.attach(geom)
-    cs = sc.commit()
-    assert len(cs.hairs) == (3 if shape == "fur" else 13)
-    assert cs.hair_set.packed.runs() == [(shape == "ball", 0,
-                                          len(cs.hairs))]
-    world = torch.cat([torch.cat([rows_times(h.packed.seg[:, 0:3], h.rot.T),
-                                  rows_times(h.packed.seg[:, 3:6], h.rot.T)],
-                                 1) for h in cs.hairs]).numpy()
-    rng = np.random.default_rng(22)
-    n = 768
-    org, d = _aimed_rays(rng, n, world, extent)
-    tf = np.full(n, np.inf, np.float32)
-    tf[1::5] = rng.uniform(0.5, 4.0, tf[1::5].shape)
-    tf[3::17] = -np.inf
-    flat = _port_rays(org, d, tf)
-    start = port_scene.miss_hits((n,), flat.tfar, device="cpu")
-    one = port_scene._fold_hair(cs, flat, start)
-    old = _fold_one_cluster_at_a_time(cs, flat, start)
-    for name in ("t", "u", "v", "ng", "prim_id", "geom_id", "gprim",
-                 "inst_id"):
-        a, b = getattr(one, name), getattr(old, name)
-        assert torch.equal(_bits(a), _bits(b)), name
-    c = cs.hair_set.packed
-    _t, slot, cl = hk.hair_set_plain(c, flat)
-    assert one.valid.sum() > 100 and len(set(cl[slot >= 0].tolist())) >= 3
-    occ = port_scene.scene_occluded(cs, flat)
-    occ_old, entered = _occluded_one_cluster_at_a_time(cs, flat)
-    assert torch.equal(occ, occ_old)
-    assert torch.equal(occ, one.valid | (flat.tfar == -math.inf))
-    # an any-hit ray that hits enters no later cluster
-    *_r, st_o = hk.hair_set_plain(c, flat, occluded=True, stats=True)
-    assert st_o["clusters_entered"] == entered < n * len(cs.hairs)
-    # the counters of one pass over the set are the clusters' own, each
-    # cluster walked from the running t
-    *_r, st = hk.hair_set_plain(c, flat, stats=True)
-    t_run, sums = flat.tfar.clone(), {}
-    for k, h in enumerate(cs.hairs):
-        cr = Rays(rows_times(flat.org, h.rot), rows_times(flat.dir, h.rot),
-                  flat.tnear, t_run)
-        t_run, _s, st_k = hk.hair_plain(h.packed, cr, stats=True)
-        for key, val in st_k.items():
-            sums[key] = sums.get(key, 0) + val
-    assert st == {**sums, "rays": n, "clusters_entered": n * len(cs.hairs)}
 
 
 def test_mixed_leaf_types_make_one_launch_a_type(monkeypatch):
