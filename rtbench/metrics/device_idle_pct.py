@@ -1,0 +1,9 @@
+"""device_idle_pct: the share of the traced window in which no operation
+ran on the card, from the profiler's timeline (the union of the device
+events' intervals)."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
